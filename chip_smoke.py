@@ -1,0 +1,449 @@
+#!/usr/bin/env python3
+"""Smoke run of masp_tpu_torch on one NVIDIA GPU: builds the CUDA kernels,
+holds each against its plain PyTorch version at the main path's shapes,
+then proves a Spend-shaped Groth16 circuit three times and checks every
+proof with the host pairing verifier and against a toxic-waste oracle.
+
+    python3 chip_smoke.py            # everything (one card)
+    python3 chip_smoke.py --kernels  # build and kernel checks only
+
+The circuit is a seeded synthetic R1CS with the Spend circuit's shape
+(8 inputs, 100,497 aux variables, 100,645 constraints, A/B/C non-zeros
+262,108 / 101,876 / 209,066, densities 86,931 / 62,170, 68,418 boolean aux
+variables): the prover's device work depends only on that shape. It is
+satisfiable by construction: boolean wires (1 - b) b = 0, and-gates of bits,
+and product gates x y = z over sparse linear combinations. Parameters come
+from the port's generator with known toxic waste.
+
+Exits non-zero, printing no result, without a CUDA device or without the
+package beside it. The last line of a passing run is
+{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import random
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+SEED = 20261016
+# Spend-shaped R1CS (counts of the Spend circuit with its input constraints)
+N_INPUTS = 8
+N_SEEDS = 50_337  # bits with (1 - b) b = 0: in A and in B
+N_ANDS = 18_081  # bits as and-gates of two seed bits: in C only
+N_FULL = 32_079  # full-width variables, each defined by one product gate
+N_CHECKS = 133  # product gates over defined variables, no new variable
+AND_IN_A = 17_763  # and-gate bits that later gates read in A
+FULL_IN_A = 18_823
+FULL_IN_B = 11_832
+# mean terms of the product gates' linear combinations
+K_A, K_B, K_C = 4.45, 1.0385, 5.93
+SPEND = {"inputs": 8, "aux": 100_497, "constraints": 100_645, "nnz_a": 262_108,
+         "nnz_b": 101_876, "nnz_c": 209_066, "a_density": 86_931,
+         "b_density": 62_170, "bool_aux": 68_418, "bool_a": 68_100, "bool_b": 50_337}
+
+# peak rates of one H100 SXM at its 700 W limit: HBM bandwidth (data sheet)
+# and 32-bit integer multiply-adds: 132 SMs x 64 INT32 lanes x 1.98 GHz boost
+HBM_BYTES_PER_S = 3.35e12
+IMAD_PER_S = 132 * 64 * 1.98e9
+
+REPLACES = {
+    "mont_mul_fr": "masp_tpu/kernels/field_kernels.py:350",
+    "mont_mul_fq": "masp_tpu/kernels/field_kernels.py:350",
+    "g1_add": "masp_tpu/kernels/field_kernels.py:356",
+    "g2_add": "masp_tpu/kernels/field_kernels.py:425",
+    "g1_add01": "masp_tpu/kernels/field_kernels.py:372",
+    "g2_add01": "masp_tpu/kernels/field_kernels.py:397",
+}
+SOURCE = {k: "masp_tpu_torch/csrc/" + ("mont_mul.cu" if k.startswith("mont") else "point_add.cu")
+          for k in REPLACES}
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+# --- the Spend-shaped circuit ----------------------------------------------------
+
+def spend_shaped_r1cs(seed: int):
+    """(Assembly, witness ints, public inputs) of the synthetic circuit."""
+    from masp_tpu_torch.groth16 import assembly_from_arrays
+    from masp_tpu_torch.host.fields import SCALAR_MODULUS as R
+
+    rng = random.Random(seed)
+    consts = [1, 2, 3, 4, 8, 16, 256, 65536, 1 << 32, R - 1, R - 2, R - 4]
+    aux0 = N_INPUTS
+    seeds = list(range(aux0, aux0 + N_SEEDS))
+    ands = list(range(seeds[-1] + 1, seeds[-1] + 1 + N_ANDS))
+    fulls = list(range(ands[-1] + 1, ands[-1] + 1 + N_FULL))
+    n_vars = fulls[-1] + 1
+    z = [0] * n_vars
+    z[0] = 1
+    for s in seeds:
+        z[s] = rng.getrandbits(1)
+    rows = []  # (A, B, C) as lists of (var, coeff)
+    for s in seeds:
+        rows.append(([(0, 1), (s, R - 1)], [(s, 1)], []))
+    for d in ands:
+        x, y = rng.choice(seeds), rng.choice(seeds)
+        z[d] = z[x] & z[y]
+        rows.append(([(x, 1)], [(y, 1)], [(d, 1)]))
+
+    # required first reads: each listed variable is read by one later gate
+    need_a = [[] for _ in range(N_FULL + N_CHECKS)]
+    need_b = [[] for _ in range(N_FULL + N_CHECKS)]
+    for d in rng.sample(ands, AND_IN_A):
+        need_a[rng.randrange(N_FULL)].append(d)
+    for j in rng.sample(range(N_FULL - 1), FULL_IN_A):
+        need_a[rng.randrange(j + 1, N_FULL)].append(fulls[j])
+    for j in rng.sample(range(N_FULL - 1), FULL_IN_B):
+        need_b[rng.randrange(j + 1, N_FULL)].append(fulls[j])
+    need_b[0].append(0)  # ONE in B
+    defined = seeds + ands
+
+    def lc(required, k_mean, pool):
+        k = max(len(required), int(k_mean) + (rng.random() < k_mean - int(k_mean)))
+        return [(v, rng.choice(consts)) for v in required + [rng.choice(pool) for _ in range(k - len(required))]]
+
+    def ev(terms):
+        return sum(c * z[v] for v, c in terms) % R
+
+    gates = []
+    for g in range(N_FULL + N_CHECKS):
+        A = lc(need_a[g], K_A, seeds)
+        B = lc(need_b[g], K_B, seeds)
+        if g < N_FULL:
+            out = fulls[g]
+            others = [(rng.choice(defined), rng.choice(consts)) for _ in range(int(K_C) - 1 + (rng.random() < K_C - int(K_C)))]
+            cz = rng.choice(consts)
+            z[out] = (ev(A) * ev(B) - ev(others)) * pow(cz, -1, R) % R
+            C = [(out, cz)] + others
+            defined.append(out)
+            gates.append((A, B, C))
+        else:  # a check gate repeats an earlier gate's A * B = C
+            gates.append(gates[rng.randrange(N_FULL)])
+    rows.extend(gates)
+    # public inputs: in_i = bit * full
+    publics = []
+    for i in range(1, N_INPUTS):
+        x, y = rng.choice(seeds), rng.choice(fulls[:FULL_IN_B])
+        z[i] = z[x] * z[y] % R
+        publics.append(z[i])
+        rows.append(([(x, 1)], [(y, 1)], [(i, 1)]))
+    for i in range(N_INPUTS):  # bellman's input constraints, last
+        rows.append(([(i, 1)], [], []))
+
+    indptr, var_idx, coeff_vals = [0], [], []
+    for k in range(3):
+        for r in rows:
+            for v, c in r[k]:
+                var_idx.append(v)
+                coeff_vals.append(c)
+            indptr.append(len(var_idx))
+    uniq = sorted(set(coeff_vals))
+    table = np.frombuffer(b"".join(c.to_bytes(32, "little") for c in uniq), dtype=np.uint64).reshape(-1, 4)
+    pos = {c: i for i, c in enumerate(uniq)}
+    coeffs = table[np.asarray([pos[c] for c in coeff_vals])]
+    assignment = np.frombuffer(b"".join(x.to_bytes(32, "little") for x in z), dtype=np.uint64).reshape(-1, 4)
+    asm = assembly_from_arrays(N_INPUTS, indptr, var_idx, coeffs, assignment.copy())
+    return asm, z, publics
+
+
+def r1cs_counts(asm) -> dict:
+    from masp_tpu_torch.groth16.generator import densities
+    from masp_tpu_torch.groth16.prover import boolean_var_mask
+
+    n = asm.num_constraints
+    ip = asm.indptr
+    ad, bd = densities(asm)
+    mask = boolean_var_mask(asm)
+    return {"inputs": asm.num_inputs, "aux": asm.num_vars - asm.num_inputs, "constraints": n,
+            "nnz_a": int(ip[n] - ip[0]), "nnz_b": int(ip[2 * n] - ip[n]),
+            "nnz_c": int(ip[3 * n] - ip[2 * n]), "a_density": int(ad.sum()),
+            "b_density": int(bd.sum()), "bool_aux": int(mask[asm.num_inputs:].sum()),
+            "bool_a": int(mask[ad].sum()), "bool_b": int(mask[bd].sum())}
+
+
+def oracle_proof(u, v, w, z, tau, alpha, beta, delta, r, s, n_inputs):
+    """The proof from the Fr scalars at tau, one host scalar mul per point:
+    A = alpha + sum z_i u_i + r delta, B = beta + sum z_i v_i + s delta,
+    C = (sum_aux z_i (beta u_i + alpha v_i + w_i) + h(tau) Z(tau)) / delta
+        + s A + r B - r s delta, with h(tau) Z(tau) = (z.u)(z.v) - z.w."""
+    from masp_tpu_torch.host.bls12_381 import G1, G2, R
+    from masp_tpu_torch.host.structures import Proof
+
+    zu = sum(a * b for a, b in zip(z, u)) % R
+    zv = sum(a * b for a, b in zip(z, v)) % R
+    zw = sum(a * b for a, b in zip(z, w)) % R
+    aux = sum(z[i] * (beta * u[i] + alpha * v[i] + w[i]) for i in range(n_inputs, len(z))) % R
+    a_s = (alpha + zu + r * delta) % R
+    b_s = (beta + zv + s * delta) % R
+    c_s = ((aux + zu * zv - zw) * pow(delta, -1, R) + s * a_s + r * b_s - r * s * delta) % R
+    return Proof(a=G1.generator() * a_s, b=G2.generator() * b_s, c=G1.generator() * c_s)
+
+
+# --- kernel phase ------------------------------------------------------------------
+
+def _median_ms(fn, runs: int) -> float:
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(runs):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        fn()
+        e1.record()
+        torch.cuda.synchronize()
+        times.append(e0.elapsed_time(e1))
+    return float(np.median(times))
+
+
+def _chain_ms(add, x, y, steps: int = 20) -> float:
+    """Card time per launch of ``steps`` dependent adds acc = add(acc, y),
+    as the bucket reduction chains run them (median of 5)."""
+
+    def run():
+        acc = x
+        for _ in range(steps):
+            acc = add(acc, y)
+
+    return _median_ms(run, 5) / steps
+
+
+def _check_equal(name, got, want):
+    import torch
+
+    if got.shape != want.shape or not torch.equal(got, want):
+        bad = (got != want).any(dim=-1).nonzero().flatten()[:5].tolist()
+        raise AssertionError(f"{name}: kernel differs from its plain version at lanes {bad}")
+    return float((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+
+
+def _field_inputs(spec, n, rng, dev):
+    """(n, L) Montgomery-form operands with 0, 1, N-1 and mont-1 among them."""
+    import torch
+
+    from masp_tpu_torch.ops import field as F
+
+    edge = [0, 1, spec.modulus - 1, 2, spec.modulus - 2]
+    xs = F.encode(spec, edge + [rng.randrange(spec.modulus) for _ in range(min(n, 4096) - len(edge))])
+    reps = -(-n // xs.shape[0])
+    a = np.tile(xs, (reps, 1))[:n]
+    # raw limbs of 1 (so mont-1 comes out of to_mont) alongside the encodings
+    a[5] = 0
+    a[5, 0] = 1
+    perm = np.random.default_rng(rng.randrange(1 << 30)).permutation(n)
+    b = a[perm]
+    b[: len(edge)] = F.encode(spec, [spec.modulus - 1, 0, spec.modulus - 1, 1, 1])
+    return (torch.as_tensor(a.astype(np.int32), device=dev), torch.as_tensor(b.astype(np.int32), device=dev))
+
+
+def _point_inputs(group, rows_np, n, dev):
+    """(P, Q, Pp, Qp): affine-encoded operands (Z in {0, mont-1}) and
+    projective ones (general Z), with identity+identity, P+P, P+(-P),
+    identity+P and P+identity in the first lanes."""
+    import torch
+
+    from masp_tpu_torch.kernels import point_add as PA
+    from masp_tpu_torch.ops import msm_sorted as MS, weierstrass as W
+    from masp_tpu_torch.ops.msm import identity_rows
+
+    fops = W.G1Ops if group == 1 else W.G2Ops
+    reps = -(-(n + 1) // rows_np.shape[0])
+    base = torch.as_tensor(np.tile(rows_np, (reps, 1))[: n + 1], device=dev)
+    P, Q = base[:n].clone(), base[1 : n + 1].clone()
+    ident = identity_rows(fops, (1,), dev)[0]
+    P[0], Q[0] = ident, ident
+    Q[1] = P[1]
+    Q[2] = MS._g_neg(fops, P[2:3])[0]
+    P[3] = ident
+    Q[4] = ident
+    # projective operands: sums of affine points have general Z
+    Pp = PA.point_add_plain(group, P, torch.roll(Q, 7, 0))
+    Qp = PA.point_add_plain(group, torch.roll(P, 3, 0), Q)
+    Pp[0], Qp[0] = ident, ident
+    Qp[1] = Pp[1]
+    Qp[2] = MS._g_neg(fops, Pp[2:3])[0]
+    Pp[3] = ident
+    Qp[4] = ident
+    return P, Q, Pp, Qp
+
+
+def kernel_phase(params, dev, rng, card: str) -> dict:
+    """Every kernel instantiation against its plain version at the main
+    path's shapes (and at a ragged count and on strided rows), bit for bit:
+    the tolerance is exact equality, as for any integer arithmetic."""
+    import torch
+
+    from masp_tpu_torch.kernels import mont_mul as MK, point_add as PA
+    from masp_tpu_torch.ops.field import FQ, FR
+
+    out = {}
+    W_ = {"fr": 8, "fq": 12}
+    for name, spec, n in (("mont_mul_fr", FR, 3 << 17), ("mont_mul_fq", FQ, 1 << 16)):
+        a, b = _field_inputs(spec, n, rng, dev)
+        err = _check_equal(name, MK.mont_mul(spec, a, b), MK.mont_mul_plain(spec, a, b))
+        ar, br = a[:1000 + 3], b[:1000 + 3]
+        _check_equal(name + " (ragged)", MK.mont_mul(spec, ar, br), MK.mont_mul_plain(spec, ar, br))
+        w = W_[spec.name.lower()]
+        out[name] = {
+            "n": n, "max_abs_err": err,
+            "ms": _median_ms(lambda: MK.mont_mul(spec, a, b), 10),
+            "plain_ms": _median_ms(lambda: MK.mont_mul_plain(spec, a, b), 3),
+            "imad": n * 2 * (2 * w * w + w), "bytes": 3 * n * spec.L * 4,
+        }
+    fq_imad = 2 * (2 * 144 + 12)
+    for group, rows in ((1, params.h), (2, params.b_g2)):
+        n = 1 << 16
+        P, Q, Pp, Qp = _point_inputs(group, rows, n, dev)
+        K = 3 * (24 if group == 1 else 48)
+        per_mul = fq_imad * (1 if group == 1 else 3)
+        for leaf, (x, y) in ((True, (P, Q)), (False, (Pp, Qp))):
+            name = f"g{group}_add01" if leaf else f"g{group}_add"
+            err = _check_equal(name, PA.point_add(group, x, y, leaf), PA.point_add_plain(group, x, y, leaf))
+            if leaf:  # the leaf form gives the complete formula's limbs
+                _check_equal(name + " vs complete", PA.point_add(group, x, y, True), PA.point_add(group, x, y, False))
+            xr, yr = x[:1000 + 3], y[:1000 + 3]
+            _check_equal(name + " (ragged)", PA.point_add(group, xr, yr, leaf), PA.point_add_plain(group, xr, yr, leaf))
+            # strided operands, as the MSM ladder passes them
+            pairs = torch.cat([x, y], dim=1)
+            _check_equal(name + " (strided)", PA.point_add(group, pairs[:, :K], pairs[:, K:], leaf),
+                         PA.point_add_plain(group, x, y, leaf))
+            out[name] = {
+                "n": n, "max_abs_err": err,
+                "ms": _median_ms(lambda: PA.point_add(group, x, y, leaf), 10),
+                "plain_ms": _median_ms(lambda: PA.point_add_plain(group, x, y, leaf), 3),
+                "imad": n * per_mul * (9 if leaf else 12), "bytes": 3 * n * K * 4,
+            }
+            if not leaf:  # the widths of bucket_reduce_horner's chains
+                for width in (1, 32 if group == 2 else 4 * 32):
+                    ms = _chain_ms(lambda p, q: PA.point_add(group, p, q), x[:width], y[:width])
+                    log(f"kernel {name} chain: {ms:.4f} ms per launch at width {width} "
+                        f"(20 dependent launches, median of 5) on {card}")
+    for name, r in out.items():
+        # bytes of the int32 rows the kernel reads and writes; each row holds
+        # 16-bit limbs, so the limbs' own payload is half of that
+        r["bound_ms"] = 1e3 * max(r["bytes"] / HBM_BYTES_PER_S, r["imad"] / IMAD_PER_S)
+        r["bound_by"] = "bytes" if r["bytes"] / HBM_BYTES_PER_S > r["imad"] / IMAD_PER_S else "operations"
+        payload_ms = 1e3 * max(r["bytes"] / 2 / HBM_BYTES_PER_S, r["imad"] / IMAD_PER_S)
+        log(f"kernel {name}: n={r['n']} bit-identical to plain (tolerance: exact; max_abs_err "
+            f"{r['max_abs_err']}); kernel {r['ms']:.4f} ms (median of 10), plain {r['plain_ms']:.3f} ms "
+            f"(median of 3), bound {r['bound_ms']:.4f} ms ({r['bound_by']}, int32 rows; "
+            f"{payload_ms:.4f} ms for the 16-bit payload) on {card}")
+    return out
+
+
+# --- main ------------------------------------------------------------------------------
+
+def card_line() -> str:
+    res = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60, check=True)
+    return res.stdout.strip().splitlines()[0]
+
+
+def main(argv) -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    try:
+        from masp_tpu_torch.kernels import LAUNCHES, build, reset_launches
+    except ImportError as e:
+        print(f"chip_smoke: masp_tpu_torch is not beside this script ({e})", file=sys.stderr)
+        return 2
+    from masp_tpu_torch.groth16 import create_proof_from_assembly, generate_parameters
+    from masp_tpu_torch.groth16.generator import eval_at_tau
+    from masp_tpu_torch.host.structures import prepare_verifying_key
+    from masp_tpu_torch.host.verifier import verify_proof
+    from masp_tpu_torch.utils import tracing
+
+    dev = torch.device("cuda")
+    kind = torch.cuda.get_device_name(0)
+    card = card_line()
+    log(f"card: {card}")
+    log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, python {sys.version.split()[0]}")
+    t0 = time.perf_counter()
+    build.build_all()
+    log(f"kernel build: {time.perf_counter() - t0:.1f} s (one nvcc per source, in parallel)")
+    for src in build.SOURCES:
+        for line in build.log_path(src).read_text().splitlines():
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
+                log(f"  ptxas {src}: {line.strip()}")
+
+    rng = random.Random(SEED)
+    t0 = time.perf_counter()
+    asm, z, publics = spend_shaped_r1cs(SEED)
+    counts = r1cs_counts(asm)
+    log(f"setup: Spend-shaped R1CS in {time.perf_counter() - t0:.1f} s: {json.dumps(counts)}")
+    for k, want in SPEND.items():
+        if abs(counts[k] - want) > 0.05 * want:
+            raise AssertionError(f"R1CS count {k} = {counts[k]} is not within 5% of Spend's {want}")
+    tau, alpha, beta, gamma, delta = (rng.randrange(1, 1 << 250) for _ in range(5))
+    t0 = time.perf_counter()
+    params = generate_parameters(asm, tau, alpha, beta, gamma, delta, device=dev)
+    torch.cuda.synchronize()
+    log(f"setup: parameters on the card in {time.perf_counter() - t0:.1f} s "
+        f"(h {len(params.h)}, l {len(params.l)}, a {len(params.a)}, b {len(params.b_g1)})")
+
+    kern = kernel_phase(params, dev, rng, card)
+    if "--kernels" in argv:
+        return 0
+
+    m = 1 << (asm.num_constraints - 1).bit_length()
+    u, v, w = eval_at_tau(asm, tau, m)
+    pvk = prepare_verifying_key(params.vk)
+    rs = [(rng.randrange(1, 1 << 250), rng.randrange(1, 1 << 250)) for _ in range(4)]
+    t0 = time.perf_counter()
+    create_proof_from_assembly(asm, params, *rs[0], device=dev)
+    log(f"warm-up proof: {time.perf_counter() - t0:.2f} s")
+
+    tracing.enable()
+    tracing.reset()
+    reset_launches()
+    times, proofs = [], []
+    for r, s in rs[1:]:
+        t0 = time.perf_counter()
+        proofs.append(create_proof_from_assembly(asm, params, r, s, device=dev))
+        times.append(time.perf_counter() - t0)
+    launches = dict(LAUNCHES)
+    stages = tracing.report()
+    tracing.enable(False)
+    log(f"proofs: {[round(t, 4) for t in times]} s; median {np.median(times):.4f} s; "
+        f"{len(times) / sum(times):.3f} proofs/s on {card}")
+    for name, st in stages.items():
+        dev_ms = "n/a" if st["device_ms"] is None else f"{st['device_ms'] / st['count']:.2f} ms"
+        log(f"  stage {name}: host {1e3 * st['host_s'] / st['count']:.2f} ms, stream {dev_ms} per proof")
+    log(f"launches over {len(times)} proofs: {json.dumps(launches)}")
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"kernel {name} was not launched on the proof path")
+    for (r, s), proof in zip(rs[1:], proofs):
+        if not verify_proof(pvk, proof, publics):
+            raise AssertionError("a proof failed the host pairing verifier")
+        if proof != oracle_proof(u, v, w, z, tau, alpha, beta, delta, r, s, asm.num_inputs):
+            raise AssertionError("a proof differs from the toxic-waste oracle")
+    log(f"all {len(proofs)} proofs pass verify_proof and equal the toxic-waste oracle")
+
+    line = {"kernels": [{
+        "name": name, "route": "cuda", "source": SOURCE[name], "replaces": REPLACES[name],
+        "launches": launches[name], "max_abs_err": k["max_abs_err"], "ms": k["ms"],
+        "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
+        "library_ms": None} for name, k in kern.items()]}
+    print(json.dumps(line))
+    print(card)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

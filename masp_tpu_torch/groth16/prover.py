@@ -1,0 +1,377 @@
+"""Groth16 prover, main path: witness -> NTT quotient -> MSMs -> proof.
+
+Port of masp_tpu/groth16/prover.py in its default configuration: window
+c = 8, unsigned digits extracted on the device from the witness limbs, the
+boolean split of the l/a/b queries, the on-device a/b/c evaluation, and the
+projective scan MSM. Everything is enqueued on the current CUDA stream; the
+five query results are made affine on the device and fetched once, then the
+proof is assembled on the host.
+
+Departures from the reference that leave every result as it is: the
+windows of an MSM run batched (ops/msm_sorted.py), the three a/b/c NTTs run
+as one batch, and the bucket reduction of the four full-width G1 MSMs runs
+as one 4-lane chain.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from masp_tpu_torch import resolve_device
+from masp_tpu_torch.groth16.domain import Domain
+from masp_tpu_torch.groth16.generator import coeff_ints, densities
+from masp_tpu_torch.groth16.params import Assembly, Parameters
+from masp_tpu_torch.host.bls12_381 import R
+from masp_tpu_torch.host.structures import Proof
+from masp_tpu_torch.ops import field as F
+from masp_tpu_torch.ops import msm_sorted as MS
+from masp_tpu_torch.ops import weierstrass as W
+from masp_tpu_torch.ops.field import FR
+from masp_tpu_torch.ops.limbs import normalize
+from masp_tpu_torch.ops.msm import identity_rows
+from masp_tpu_torch.ops.projective import unpack_rows
+from masp_tpu_torch.utils.tracing import span
+
+# window width of the full-width MSMs
+MSM_C = 8
+# a query is split into a {0,1}-scalar part and a full-width part when at
+# least this many of its exponents are structural bit wires (Spend: 50-68k
+# per query; Output and Convert: 17-24k, where the split does not pay)
+MSM_SPLIT_MIN = 32768
+
+G1_QUERIES = ("h", "l", "a", "b_g1")
+
+
+def _next_pow2(n: int) -> int:
+    return 1 << max(0, (n - 1).bit_length())
+
+
+# --- structure of the circuit (cached per parameters) ------------------------
+
+def boolean_var_mask(asm: Assembly) -> np.ndarray:
+    """(n_vars,) bool mask of the variables the R1CS structure forces into
+    {0, 1}: seeds (ONE - v) * v = 0, closed under xor (2a) * b = (a + b - v),
+    and a * b = v, and-not a * (ONE - b) = v, nor (ONE - a) * (ONE - b) = v
+    to a fixpoint. Variable 0 (ONE) is never in the mask."""
+    n = asm.num_constraints
+    R1 = R - 1
+    coeffs = coeff_ints(asm.coeffs)
+    var_idx = asm.var_idx.tolist()
+    indptr = asm.indptr.tolist()
+
+    def row(k, j):
+        lo, hi = indptr[k * n + j], indptr[k * n + j + 1]
+        return [(var_idx[e], coeffs[e]) for e in range(lo, hi)]
+
+    def bit_factor(r):
+        """(v) or (ONE - v) or (ONE): the dependency list if the factor is a
+        bit whenever its variables are, else None."""
+        d = dict(r)
+        if len(d) == 1:
+            ((v, co),) = d.items()
+            if co != 1:
+                return None
+            return [] if v == 0 else [v]
+        if len(d) == 2 and d.get(0) == 1:
+            others = [v for v in d if v != 0]
+            if d[others[0]] == R1:
+                return [others[0]]
+        return None
+
+    seeds, rules = [], []
+    for j in range(n):
+        a_row, b_row, c_row = row(0, j), row(1, j), row(2, j)
+        da, db, dc = dict(a_row), dict(b_row), dict(c_row)
+        if not dc and len(db) == 1 and len(da) == 2 and da.get(0) == 1:
+            bv, bc = b_row[0]
+            if bc == 1 and bv != 0 and da.get(bv) == R1:
+                seeds.append(bv)
+                continue
+        if len(db) == 1 and len(da) == 1 and len(dc) == 3:
+            bv, bc = next(iter(db.items()))
+            av, ac = next(iter(da.items()))
+            if bc == 1 and ac == 2 and dc.get(av) == 1 and dc.get(bv) == 1:
+                rest = [v for v in dc if v not in (av, bv)]
+                if len(rest) == 1 and dc[rest[0]] == R1 and rest[0] != 0:
+                    rules.append((rest[0], [av, bv]))
+                    continue
+        if len(dc) == 1:
+            cv, cc = next(iter(dc.items()))
+            if cc == 1 and cv != 0:
+                fa, fb = bit_factor(a_row), bit_factor(b_row)
+                if fa is not None and fb is not None:
+                    rules.append((cv, fa + fb))
+
+    mask = np.zeros(asm.num_vars, dtype=bool)
+    mask[seeds] = True
+    dep_rules: dict[int, list[int]] = {}
+    for ridx, (_out, deps) in enumerate(rules):
+        for d in deps:
+            dep_rules.setdefault(d, []).append(ridx)
+    pending = [r for r in range(len(rules)) if not rules[r][1]]
+    pending += [r for s in seeds for r in dep_rules.get(s, [])]
+    while pending:
+        out, deps = rules[pending.pop()]
+        if mask[out] or not all(mask[d] for d in deps):
+            continue
+        mask[out] = True
+        pending.extend(dep_rules.get(out, []))
+    mask[0] = False  # ONE rides the verifier-side IC, never split
+    return mask
+
+
+def _structure(cache: dict, asm: Assembly) -> dict:
+    """Per-circuit structure, cached in the parameters' device dict (which
+    names the device under "dev"): densities, the boolean mask and the
+    device CSR of the a|b|c rows."""
+    key = (asm.num_constraints, asm.num_inputs, asm.num_vars, asm.var_idx.shape[0])
+    st = cache.get("structure")
+    if st is not None and st["key"] == key:
+        return st
+    n = asm.num_constraints
+    m = _next_pow2(n)
+    dev = cache["dev"]
+    rows = np.repeat(np.arange(3 * n, dtype=np.int64), np.diff(asm.indptr))
+    seg = (rows // n) * m + (rows % n)
+    # per-term coefficients as Montgomery rows: mont_mul(mont(c), v) = c v
+    uniq, inv = np.unique(asm.coeffs, axis=0, return_inverse=True)
+    mont = F.encode(FR, coeff_ints(uniq)) if uniq.shape[0] else np.zeros((0, FR.L), np.uint32)
+    a_density, b_density = densities(asm)
+    st = {
+        "key": key,
+        "m": m,
+        "a_density": a_density,
+        "b_density": b_density,
+        "mask": boolean_var_mask(asm),
+        "var_idx": torch.as_tensor(asm.var_idx, device=dev),
+        "seg": torch.as_tensor(seg, device=dev),
+        "coeff16": torch.as_tensor(mont.astype(np.int32)[inv.reshape(-1)], device=dev),
+    }
+    cache["structure"] = st
+    return st
+
+
+# --- parameters on the device ---------------------------------------------------
+
+def _identity_row(g2: bool) -> np.ndarray:
+    fops = W.G2Ops if g2 else W.G1Ops
+    return identity_rows(fops, (1,), "cpu").numpy()
+
+
+def _pad_pow2(rows: np.ndarray, g2: bool, floor_log2: int = 0) -> np.ndarray:
+    n_pad = 1 << max(floor_log2, (max(rows.shape[0], 1) - 1).bit_length())
+    out = np.tile(_identity_row(g2), (n_pad, 1))
+    out[: rows.shape[0]] = rows
+    return out
+
+
+def prepare_device_params(params: Parameters, device) -> None:
+    """Copy every query to the device once, as packed rows padded with
+    identities to its own power of two (the padding changes no result)."""
+    dev = resolve_device(device)
+    if params.device.get("dev") == dev:
+        return
+    params.device.clear()
+    params.device["dev"] = dev
+    for q in G1_QUERIES + ("b_g2",):
+        params.device[q] = torch.as_tensor(_pad_pow2(params.rows(q), q == "b_g2"), device=dev)
+
+
+def prepare_split_queries(params: Parameters, asm: Assembly) -> None:
+    """Split l/a/b_g1/b_g2 into a {0,1}-scalar part and a full-width part by
+    the structural boolean mask, where at least MSM_SPLIT_MIN exponents of a
+    query are bit wires (and not all of them). Witness values are checked
+    against the mask at prove time."""
+    st = _structure(params.device, asm)
+    if params.device.get("split_key") == (st["key"], MSM_SPLIT_MIN):
+        return
+    mask = st["mask"]
+    qmasks = {
+        "l": mask[asm.num_inputs :],
+        "a": mask[st["a_density"]],
+        "b_g1": mask[st["b_density"]],
+        "b_g2": mask[st["b_density"]],
+    }
+    dev = params.device["dev"]
+    for name, qm in qmasks.items():
+        for k in ("_small", "_full", "_qmask"):
+            params.device.pop(name + k, None)
+        rows = params.rows(name)
+        if qm.shape[0] != rows.shape[0]:
+            raise ValueError(f"query {name!r} has {rows.shape[0]} points, the circuit {qm.shape[0]}")
+        n_small = int(qm.sum())
+        if n_small < MSM_SPLIT_MIN or n_small == qm.shape[0]:
+            continue
+        g2 = name == "b_g2"
+        params.device[name + "_small"] = torch.as_tensor(_pad_pow2(rows[qm], g2, 3), device=dev)
+        params.device[name + "_full"] = torch.as_tensor(_pad_pow2(rows[~qm], g2, 3), device=dev)
+        params.device[name + "_qmask"] = qm
+    params.device["split_key"] = (st["key"], MSM_SPLIT_MIN)
+
+
+# --- the h quotient ----------------------------------------------------------------
+
+def h_pipeline(dom: Domain, abc, inputs_mont: bool = False):
+    """(3, m, 16) a/b/c evaluations -> (m, 16) Montgomery h coefficients:
+    iNTT, coset NTT, a*b - c, divide by Z, inverse coset NTT. Canonical
+    limbs in unless ``inputs_mont``."""
+    if not inputs_mont:
+        abc = F.to_mont(FR, abc)
+    abc = dom.coset_fft(dom.ifft(abc))
+    t = F.sub(FR, F.mont_mul(FR, abc[0], abc[1]), abc[2])
+    return dom.icoset_fft(dom.divide_by_z_on_coset(t))
+
+
+def _abc_h(dom: Domain, st: dict, v16):
+    """On-device a/b/c evaluation fused with the h pipeline. Each
+    constraint's value is the sum of mont(c) * v products (canonical, < r);
+    the int64 column sums normalise to 16 limbs S0 plus an overflow limb
+    s16, and since 2^256 = R_fr the Montgomery form of the total is
+    to_mont(S0) + to_mont(to_mont(s16))."""
+    m = dom.m
+    prods = F.mont_mul(FR, st["coeff16"], v16[st["var_idx"]])
+    S = torch.zeros(3 * m, FR.L, dtype=torch.int64, device=v16.device)
+    S.index_add_(0, st["seg"], prods.to(torch.int64))
+    S0, s16 = normalize(S)
+    s16rows = torch.zeros_like(S0)
+    s16rows[:, 0] = s16
+    vals = F.add(FR, F.to_mont(FR, S0), F.to_mont(FR, F.to_mont(FR, s16rows)))
+    return h_pipeline(dom, vals.reshape(3, m, FR.L), inputs_mont=True)
+
+
+def _h_scalar_input(h_coeffs, m: int, n_g1: int):
+    """h scalars for the MSM as canonical limb rows, zero-padded to n_g1
+    (bellman drops the last coefficient: degree <= m - 2)."""
+    out = torch.zeros(n_g1, FR.L, dtype=torch.int32, device=h_coeffs.device)
+    out[: m - 1] = F.from_mont(FR, h_coeffs[: m - 1])
+    return out
+
+
+# --- MSMs ------------------------------------------------------------------------
+
+def _limbs(arr_u64: np.ndarray, n_padded: int) -> np.ndarray:
+    """(n, 4) uint64 scalars -> (n_padded, 16) int32 16-bit limb rows."""
+    out = np.zeros((n_padded, 16), dtype=np.int32)
+    out[: arr_u64.shape[0]] = np.ascontiguousarray(arr_u64).view("<u2").reshape(-1, 16)
+    return out
+
+
+def _host_inputs(params: Parameters, asm: Assembly, st: dict) -> dict:
+    """Every per-proof array the device needs, built on the host: the
+    witness limb rows, and per query the full-width scalar limb rows and,
+    when split, the bit column. Raises if a witness value violates the
+    boolean split."""
+    dev = params.device
+    full_u64 = asm.assignment
+    out = {"v16": _limbs(full_u64, full_u64.shape[0])}
+    scalars = {
+        "l": full_u64[asm.num_inputs :],
+        "a": full_u64[st["a_density"]],
+        "b_g1": full_u64[st["b_density"]],
+        "b_g2": full_u64[st["b_density"]],
+    }
+    for q, arr in scalars.items():
+        if q + "_small" not in dev:
+            out[q + "/limbs"] = _limbs(arr, dev[q].shape[0])
+            continue
+        qm = dev[q + "_qmask"]
+        small, full = arr[qm], arr[~qm]
+        if small.size and (small[:, 1:].any() or (small[:, 0] > 1).any()):
+            raise ValueError(f"boolean-split mask violated by witness for query {q!r}")
+        bits = np.zeros(dev[q + "_small"].shape[0], dtype=np.int32)
+        bits[: small.shape[0]] = small[:, 0]
+        out[q + "/bits"] = bits
+        out[q + "/limbs"] = _limbs(full, dev[q + "_full"].shape[0])
+    return out
+
+
+def _msms(params: Parameters, inputs: dict, h_limbs):
+    """Enqueue every MSM; returns {query: [projective rows]} (one row per
+    part) without synchronising."""
+    dev = params.device["dev"]
+    out = {q: [] for q in G1_QUERIES + ("b_g2",)}
+    g1_buckets = []
+    for q in G1_QUERIES + ("b_g2",):
+        fops = W.G2Ops if q == "b_g2" else W.G1Ops
+        with span(f"msm/{q}", dev):
+            if q == "h":
+                pts, limbs = params.device["h"], h_limbs
+            elif q + "/bits" in inputs:
+                out[q].append(MS.masked_sum(fops, params.device[q + "_small"], inputs[q + "/bits"]))
+                pts, limbs = params.device[q + "_full"], inputs[q + "/limbs"]
+            else:
+                pts, limbs = params.device[q], inputs[q + "/limbs"]
+            buckets = MS.window_buckets(fops, pts, MS.windows_from_limbs(limbs, MSM_C), MSM_C)
+            if q == "b_g2":
+                out[q].append(MS.bucket_reduce_horner(fops, buckets[None], MSM_C)[0])
+            else:
+                g1_buckets.append(buckets)
+    with span("msm/reduce_g1", dev):
+        red = MS.bucket_reduce_horner(W.G1Ops, torch.stack(g1_buckets), MSM_C)
+    for q, row in zip(G1_QUERIES, red):
+        out[q].append(row)
+    return out
+
+
+def _fetch(parts: dict) -> dict:
+    """Make every result row affine on the device (one batched inversion per
+    group), copy them to the host (the proof's one synchronisation), and sum
+    each query's parts."""
+    groups = ((W.G1Ops, G1_QUERIES, W.decode_affine_g1), (W.G2Ops, ("b_g2",), W.decode_affine_g2))
+    affine = []
+    for fops, names, _ in groups:
+        rows = torch.stack([r for q in names for r in parts[q]])
+        affine.append(W.to_affine(fops, unpack_rows(fops.GROUP, rows)))
+    res = {}
+    for (_, names, dec), (x, y) in zip(groups, affine):
+        pts = dec(x.cpu(), y.cpu())
+        i = 0
+        for q in names:
+            acc = pts[i]
+            for p in pts[i + 1 : i + len(parts[q])]:
+                acc = acc + p
+            i += len(parts[q])
+            res[q] = acc
+    return res
+
+
+def create_proof_from_assembly(asm: Assembly, params: Parameters, r: int, s: int,
+                               device="cuda") -> Proof:
+    """Groth16 proof of the witness in ``asm`` with randomisers (r, s)."""
+    if asm.assignment is None:
+        raise ValueError("the assembly carries no witness")
+    prepare_device_params(params, device)
+    prepare_split_queries(params, asm)
+    dev = params.device["dev"]
+    st = _structure(params.device, asm)
+    m = st["m"]
+    if len(params.h) != m - 1:
+        raise ValueError(f"h query has {len(params.h)} points, the domain needs {m - 1}")
+    dom = params.device.get("domain")
+    if dom is None or dom.m != m:
+        dom = params.device["domain"] = Domain(m, device=dev)
+
+    # every host-to-device copy before the first launch: a copy from
+    # pageable memory would otherwise wait for the work queued before it
+    with span("inputs", dev):
+        inputs = {k: torch.as_tensor(v, device=dev) for k, v in _host_inputs(params, asm, st).items()}
+    with span("h_pipeline", dev):
+        h_coeffs = _abc_h(dom, st, inputs["v16"])
+        h_limbs = _h_scalar_input(h_coeffs, m, params.device["h"].shape[0])
+    parts = _msms(params, inputs, h_limbs)
+    with span("fetch", dev):
+        ans = _fetch(parts)
+    with span("assemble"):
+        vk = params.vk
+        g_a = vk.delta_g1 * r + vk.alpha_g1 + ans["a"]
+        g_b = vk.delta_g2 * s + vk.beta_g2 + ans["b_g2"]
+        g_c = vk.delta_g1 * (r * s % R) + vk.alpha_g1 * s + vk.beta_g1 * r
+        g_c = g_c + ans["h"] + ans["l"] + ans["a"] * s + ans["b_g1"] * r
+    return Proof(a=g_a, b=g_b, c=g_c)
+
+
+__all__ = [
+    "create_proof_from_assembly", "prepare_device_params", "prepare_split_queries",
+    "boolean_var_mask", "h_pipeline", "MSM_C", "MSM_SPLIT_MIN",
+]

@@ -1,0 +1,120 @@
+"""Montgomery multiplication a*b*R^-1 mod N for Fr (L=16) and Fq (L=24).
+
+Replaces the Pallas kernel ``_mont_mul_kernel`` of
+masp_tpu/kernels/field_kernels.py (called through ``pallas_mont_mul``).
+The CUDA kernel is ``csrc/mont_mul.cu`` (CIOS over 32-bit words);
+``mont_mul_plain`` below is its plain PyTorch version over int64-held 16-bit
+limbs. Both return the fully reduced product (< N), so their limbs equal the
+JAX package's exactly whenever one operand is < N (always the case in the
+prover): the product before the final subtraction is the unique
+(ab + mN)/R with m = -ab/N mod R, whatever the limb width or the order in
+which m's digits are found.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from masp_tpu_torch import device_const as _const
+from masp_tpu_torch.kernels import LAUNCHES
+from masp_tpu_torch.kernels.build import library
+from masp_tpu_torch.ops.limbs import normalize, reduce_once
+
+def _spread(L: int, device) -> torch.Tensor:
+    """(L*L, 2L) 0/1 float64: product (i, j) -> column i + j."""
+    S = torch.zeros(L * L, 2 * L, dtype=torch.float64, device=device)
+    ij = torch.arange(L * L, device=device)
+    S[ij, ij // L + ij % L] = 1.0
+    return S
+
+
+def _toeplitz(limbs, width: int, device) -> torch.Tensor:
+    """(L, width) float64 with row i holding the constant's limbs from
+    column i: x @ it is the schoolbook product of x by the constant."""
+    L = len(limbs)
+    T = torch.zeros(L, width, dtype=torch.float64, device=device)
+    c = torch.as_tensor(limbs.astype("float64"), device=device)
+    for i in range(min(L, width)):
+        k = min(L, width - i)
+        T[i, i : i + k] = c[:k]
+    return T
+
+
+def _cols(x, M):
+    """Column sums x @ M of 16-bit limb products. Every partial sum is an
+    integer below 2^53, so the float64 product is exact."""
+    return (x.to(torch.float64) @ M).to(torch.int64)
+
+
+def mont_mul_plain(spec, a, b):
+    """Plain PyTorch Montgomery product; a, b (n, L) int limbs, returns
+    (n, L) int32. Used on CPU tensors, and on the card as the kernel's
+    reference.
+
+    The reduction is whole-number REDC over 16-bit limbs: m = T (-N^-1) mod
+    R in one product, then (T + m N) / R. That m is the unique one that the
+    word-serial CIOS loops of the kernel and of the JAX package build digit
+    by digit, so the limbs agree. The limb products sum into columns as
+    exact float64 matrix products (each column < L 2^32 < 2^53), which keeps
+    the plain version to a few dozen tensor operations: it runs in every CPU
+    test."""
+    L = spec.L
+    dev = a.device
+    n = a.shape[0]
+    a = a.to(torch.int64)
+    b = b.to(torch.int64)
+    # T = a * b as 2L canonical limbs
+    spread = _const(("S", L, dev), lambda: _spread(L, dev))
+    t_np = _const(("Np", spec.name, dev), lambda: _toeplitz(spec.N_PRIME, L, dev))
+    t_n = _const(("N", spec.name, dev), lambda: _toeplitz(spec.N, 2 * L, dev))
+    T, _ = normalize(_cols((a[:, :, None] * b[:, None, :]).reshape(n, L * L), spread))
+    # m = T * (-N^-1) mod R: the low L columns of the product
+    m, _ = normalize(_cols(T[:, :L], t_np))
+    # (T + m N) / R: the low L limbs cancel; the high L limbs and the carry
+    # are the product before the final subtraction
+    U, carry = normalize(_cols(m, t_n) + T)
+    return reduce_once(spec.const("N", dev), U[:, L:], carry).to(torch.int32)
+
+
+# --- the CUDA kernel's wrapper ----------------------------------------------
+
+@functools.cache
+def _c_fn(name: str):
+    fn = getattr(library("mont_mul"), {"Fr": "masp_mont_mul_fr", "Fq": "masp_mont_mul_fq"}[name])
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def mont_mul(spec, a, b):
+    """a*b*R^-1 mod N on (n, L) int32 limb rows of one device. A CPU tensor
+    runs the plain version; a CUDA tensor launches the kernel or raises."""
+    if a.dtype != torch.int32 or b.dtype != torch.int32:
+        raise TypeError("mont_mul takes int32 limb tensors")
+    if a.dim() != 2 or a.shape[1] != spec.L or a.shape != b.shape:
+        raise ValueError(f"mont_mul takes two (n, {spec.L}) tensors, got {tuple(a.shape)}, {tuple(b.shape)}")
+    if a.device != b.device:
+        raise ValueError("mont_mul operands on different devices")
+    if a.device.type == "cpu":
+        return mont_mul_plain(spec, a, b)
+    if a.device.type != "cuda":
+        raise ValueError(f"unsupported device {a.device}")
+    if not (a.is_contiguous() and b.is_contiguous()):
+        raise ValueError("mont_mul takes contiguous tensors")
+    out = torch.empty_like(a)
+    n = a.shape[0]
+    if n == 0:
+        return out
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _c_fn(spec.name)(a.data_ptr(), b.data_ptr(), out.data_ptr(), n, stream)
+    if err != 0:
+        raise RuntimeError(f"mont_mul kernel launch failed: CUDA error {err}")
+    LAUNCHES["mont_mul_" + spec.name.lower()] += 1
+    return out
+
+
+__all__ = ["mont_mul", "mont_mul_plain"]

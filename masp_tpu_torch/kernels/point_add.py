@@ -1,0 +1,99 @@
+"""Complete projective addition on G1 / G2 (RCB'15 Algorithm 7, a = 0).
+
+Replaces the Pallas kernels ``_g1_add_kernel``, ``_g2_add_kernel``,
+``_g1_add01_kernel`` and ``_g2_add01_kernel`` of
+masp_tpu/kernels/field_kernels.py (all behind ``_g_add_callable``). The CUDA
+kernel is ``csrc/point_add.cu``, one template over the group and the leaf
+specialisation (Z in {0, mont-1}, 9 products instead of 12).
+
+Points are packed rows (n, 3K) int32 of 16-bit limbs, [X | Y | Z], with
+K = 24 on G1 and K = 48 on G2 (Fq2 coordinates as c0 limbs then c1 limbs);
+the rows' last axis is contiguous, their row stride is free, so the MSM
+ladder passes even/odd views of one tensor without copies.
+
+The plain PyTorch version runs the formulas of ops/projective.py over the
+plain Montgomery product.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from masp_tpu_torch.kernels import LAUNCHES
+from masp_tpu_torch.kernels import mont_mul as MK
+from masp_tpu_torch.kernels.build import library
+from masp_tpu_torch.ops.field import FQ
+from masp_tpu_torch.ops.projective import K_OF, Fq2Arith, FqArith, pack_rows, rcb_add, rcb_add01, unpack_rows
+
+
+def _plain_fq_mul(a, b):
+    return MK.mont_mul_plain(FQ, a, b)
+
+
+class _PlainFq(FqArith):
+    fq_mul = staticmethod(_plain_fq_mul)
+
+
+class _PlainFq2(Fq2Arith):
+    fq_mul = staticmethod(_plain_fq_mul)
+
+
+def point_add_plain(group: int, p, q, leaf01: bool = False):
+    """Plain PyTorch version of the kernel on (n, 3K) rows: the formulas of
+    ops/projective.py over the plain Montgomery product."""
+    fops = _PlainFq if group == 1 else _PlainFq2
+    formula = rcb_add01 if leaf01 else rcb_add
+    out = formula(fops, unpack_rows(group, p), unpack_rows(group, q))
+    return pack_rows(out).to(torch.int32)
+
+
+# --- the CUDA kernel's wrapper ----------------------------------------------------
+
+@functools.cache
+def _c_fn():
+    fn = library("point_add").masp_point_add
+    fn.argtypes = [
+        ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_longlong,
+        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
+    ]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def point_add(group: int, p, q, leaf01: bool = False):
+    """Sum of two batches of projective points as (n, 3K) int32 rows. A CPU
+    tensor runs the plain version; a CUDA tensor launches the kernel or
+    raises. ``leaf01``: every Z is 0 or the Montgomery 1."""
+    if group not in K_OF:
+        raise ValueError(f"group must be 1 or 2, got {group}")
+    K = K_OF[group]
+    for t in (p, q):
+        if t.dtype != torch.int32 or t.dim() != 2 or t.shape[1] != 3 * K:
+            raise ValueError(f"point_add takes (n, {3 * K}) int32 rows, got {t.dtype} {tuple(t.shape)}")
+    if p.shape != q.shape or p.device != q.device:
+        raise ValueError("point_add operands differ in shape or device")
+    if p.device.type == "cpu":
+        return point_add_plain(group, p, q, leaf01)
+    if p.device.type != "cuda":
+        raise ValueError(f"unsupported device {p.device}")
+    if p.stride(1) != 1 or q.stride(1) != 1:
+        raise ValueError("point_add rows must be contiguous along the limb axis")
+    n = p.shape[0]
+    out = torch.empty((n, 3 * K), dtype=torch.int32, device=p.device)
+    if n == 0:
+        return out
+    with torch.cuda.device(p.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _c_fn()(group, int(leaf01), p.data_ptr(), p.stride(0), q.data_ptr(),
+                      q.stride(0), out.data_ptr(), n, stream)
+    if err != 0:
+        raise RuntimeError(f"point_add kernel launch failed: CUDA error {err}")
+    LAUNCHES[f"g{group}_add01" if leaf01 else f"g{group}_add"] += 1
+    return out
+
+
+__all__ = ["point_add", "point_add_plain"]
