@@ -1,11 +1,14 @@
 #!/usr/bin/env python3
 """Smoke run of masp_tpu_torch on one NVIDIA GPU: builds the CUDA kernels,
 holds each against its plain PyTorch version at the main path's shapes,
-then proves a Spend-shaped Groth16 circuit three times and checks every
-proof with the host pairing verifier and against a toxic-waste oracle.
+then proves a Spend-shaped Groth16 circuit three times in each MSM
+configuration (the batch-affine ladder, the default, then the projective
+scan ladder) and checks every proof with the host pairing verifier and
+against a toxic-waste oracle.
 
     python3 chip_smoke.py            # everything (one card)
     python3 chip_smoke.py --kernels  # build and kernel checks only
+    python3 chip_smoke.py --profile  # also one profiled proof per configuration
 
 The circuit is a seeded synthetic R1CS with the Spend circuit's shape
 (8 inputs, 100,497 aux variables, 100,645 constraints, A/B/C non-zeros
@@ -59,9 +62,16 @@ REPLACES = {
     "g2_add": "masp_tpu/kernels/field_kernels.py:425",
     "g1_add01": "masp_tpu/kernels/field_kernels.py:372",
     "g2_add01": "masp_tpu/kernels/field_kernels.py:397",
+    "affine_pre": "masp_tpu/kernels/field_kernels.py:257",
+    "affine_post": "masp_tpu/kernels/field_kernels.py:299",
 }
-SOURCE = {k: "masp_tpu_torch/csrc/" + ("mont_mul.cu" if k.startswith("mont") else "point_add.cu")
+SOURCE = {k: "masp_tpu_torch/csrc/" + ("mont_mul.cu" if k.startswith("mont") else
+                                       "affine.cu" if k.startswith("affine") else "point_add.cu")
           for k in REPLACES}
+# lanes of the affine levels' kernel checks: level 0 of the h query (32
+# windows x 2^17 points / 2) and the composite level at 2^19 lanes
+AFFINE_LANES = 1 << 21
+AFFINE_LEVEL_LANES = 1 << 19
 
 
 def log(msg: str) -> None:
@@ -327,17 +337,193 @@ def kernel_phase(params, dev, rng, card: str) -> dict:
                     ms = _chain_ms(lambda p, q: PA.point_add(group, p, q), x[:width], y[:width])
                     log(f"kernel {name} chain: {ms:.4f} ms per launch at width {width} "
                         f"(20 dependent launches, median of 5) on {card}")
+    out.update(affine_kernel_phase(params, dev, card))
     for name, r in out.items():
         # bytes of the int32 rows the kernel reads and writes; each row holds
         # 16-bit limbs, so the limbs' own payload is half of that
-        r["bound_ms"] = 1e3 * max(r["bytes"] / HBM_BYTES_PER_S, r["imad"] / IMAD_PER_S)
-        r["bound_by"] = "bytes" if r["bytes"] / HBM_BYTES_PER_S > r["imad"] / IMAD_PER_S else "operations"
-        payload_ms = 1e3 * max(r["bytes"] / 2 / HBM_BYTES_PER_S, r["imad"] / IMAD_PER_S)
+        bytes_ms, ops_ms = 1e3 * r["bytes"] / HBM_BYTES_PER_S, 1e3 * r["imad"] / IMAD_PER_S
+        r["bound_ms"] = max(bytes_ms, ops_ms)
+        r["bound_by"] = "bytes" if bytes_ms > ops_ms else "operations"
         log(f"kernel {name}: n={r['n']} bit-identical to plain (tolerance: exact; max_abs_err "
             f"{r['max_abs_err']}); kernel {r['ms']:.4f} ms (median of 10), plain {r['plain_ms']:.3f} ms "
-            f"(median of 3), bound {r['bound_ms']:.4f} ms ({r['bound_by']}, int32 rows; "
-            f"{payload_ms:.4f} ms for the 16-bit payload) on {card}")
+            f"(median of 3), bound {r['bound_ms']:.4f} ms ({r['bound_by']}; bytes {bytes_ms:.4f} ms "
+            f"for int32 rows, {bytes_ms / 2:.4f} ms for the 16-bit payload; operations {ops_ms:.4f} ms) "
+            f"on {card}")
     return out
+
+
+def _affine_inputs(rows_np, n, dev):
+    """(P1, P2) affine rows [x | y | f] (n, 49) from encoded G1 points, with
+    P+P, P+(-P), identity+P, P+identity, identity+identity, and a flagged
+    lane over an unrelated point's coordinates in the first lanes."""
+    import torch
+
+    from masp_tpu_torch.ops import field as F
+    from masp_tpu_torch.ops.field import FQ
+
+    reps = -(-(n + 7) // rows_np.shape[0])
+    base = torch.as_tensor(np.tile(rows_np, (reps, 1))[: n + 7], device=dev)
+    aff = torch.cat([base[:, :48], (base[:, 48:] == 0).all(dim=1, keepdim=True).to(torch.int32)], dim=1)
+    P1, P2 = aff[:n].clone(), aff[7 : n + 7].clone()
+    ident = torch.zeros(49, dtype=torch.int32, device=dev)
+    ident[24:48] = FQ.const("ONE_MONT", dev)
+    ident[48] = 1
+    P2[0] = P1[0]
+    P2[1] = P1[1]
+    P2[1, 24:48] = F.neg(FQ, P1[1:2, 24:48])[0]
+    P1[2] = ident
+    P2[3] = ident
+    P1[4], P2[4] = ident, ident
+    P1[5, 48] = 1  # the identity, over another point's coordinates
+    return P1, P2
+
+
+def _chunked(fn, n, *args, chunk=AFFINE_LEVEL_LANES):
+    """fn over lane chunks of its (n, ...) arguments, outputs concatenated:
+    the plain versions hold (chunk, 24, 24) int64 products per field
+    product, which at 2^21 lanes would take ~20 GB at once."""
+    import torch
+
+    parts = [fn(*(a[i : i + chunk] for a in args)) for i in range(0, n, chunk)]
+    if isinstance(parts[0], tuple):
+        return tuple(torch.cat(p) for p in zip(*parts))
+    return torch.cat(parts)
+
+
+def affine_kernel_phase(params, dev, card: str) -> dict:
+    """affine_pre and affine_post at h's level-0 width, and the composite
+    affine_level, each bit for bit against its plain version; the root
+    inverse's launch count and time."""
+    import torch
+
+    from masp_tpu_torch.kernels import LAUNCHES, affine as AK
+    from masp_tpu_torch.ops import msm_sorted as MS, weierstrass as W
+
+    n = AFFINE_LANES
+    P1, P2 = _affine_inputs(params.h, n, dev)
+    pairs = torch.cat([P1, P2], dim=1)  # strided operands, as the ladder passes them
+    S1, S2 = pairs[:, : AK.ROW], pairs[:, AK.ROW :]
+    pre = AK.affine_pre(P1, P2)
+    pre_plain = _chunked(AK.affine_pre_plain, n, P1, P2)
+    err = max(_check_equal(f"affine_pre {part}", got, want)
+              for part, got, want in zip(("n", "d", "code"), pre, pre_plain))
+    codes = pre[2][:6].tolist()
+    if codes != [0, 4, 1, 2, 3, 1]:
+        raise AssertionError(f"affine_pre: edge-lane case codes {codes}, want [0, 4, 1, 2, 3, 1]")
+    for part, got, want in zip(("n", "d", "code"), AK.affine_pre(S1, S2), pre):
+        _check_equal(f"affine_pre {part} (strided)", got, want)
+    for part, got, want in zip(("n", "d", "code"), AK.affine_pre(P1[:1003], P2[:1003]),
+                               AK.affine_pre_plain(P1[:1003], P2[:1003])):
+        _check_equal(f"affine_pre {part} (ragged)", got, want)
+    nn, d, code = pre
+    inv = MS._tree_batch_inv(W.G1Ops, d)
+    post = AK.affine_post(nn, inv, P1, P2, code)
+    post_err = _check_equal("affine_post", post, _chunked(AK.affine_post_plain, n, nn, inv, P1, P2, code))
+    _check_equal("affine_post (strided)", AK.affine_post(nn, inv, S1, S2, code), post)
+    _check_equal("affine_post (ragged)", AK.affine_post(nn[:1003], inv[:1003], P1[:1003], P2[:1003], code[:1003]),
+                 AK.affine_post_plain(nn[:1003], inv[:1003], P1[:1003], P2[:1003], code[:1003]))
+    flags = post[:6, 48].tolist()
+    if flags != [0, 1, 0, 0, 1, 0]:
+        raise AssertionError(f"affine_post: edge-lane identity flags {flags}, want [0, 1, 0, 0, 1, 0]")
+    m = AFFINE_LEVEL_LANES
+    lvl = AK.affine_level(S1[:m], S2[:m])
+    _check_equal("affine_level", lvl, AK.affine_level_plain(P1[:m], P2[:m]))
+    log(f"kernel affine_level: {m} lanes bit-identical to affine_level_plain (tolerance: exact); "
+        f"{_median_ms(lambda: AK.affine_level(S1[:m], S2[:m]), 3):.3f} ms at {m} lanes, "
+        f"{_median_ms(lambda: AK.affine_level(S1, S2), 3):.3f} ms at {n} lanes (median of 3) on {card}")
+    # one composed G2 level at the b_g2 full part's level-0 width (32
+    # windows x 2^14 points): its Fq2 products go through the Fq kernel
+    g2 = torch.as_tensor(np.tile(params.b_g2, (-(-m // params.b_g2.shape[0]), 1))[:m], device=dev)
+    g2 = torch.cat([g2[:, :96], (g2[:, 96:] == 0).all(dim=1, keepdim=True).to(torch.int32)], dim=1)
+    before = LAUNCHES["mont_mul_fq"]
+    MS._affine_halve(W.G2Ops, g2)
+    launches = LAUNCHES["mont_mul_fq"] - before
+    log(f"composed G2 affine level: {m // 2} pairs, {_median_ms(lambda: MS._affine_halve(W.G2Ops, g2), 3):.3f} ms "
+        f"(median of 3), {launches} mont_mul_fq launches on {card}")
+    for fops in (W.G1Ops, W.G2Ops):
+        root = torch.stack([P1[8:9, :24]] * (1 if fops is W.G1Ops else 2), dim=1).reshape((1,) + fops.coord_shape)
+        before = LAUNCHES["mont_mul_fq"]
+        MS._root_inv(fops, root)
+        launches = LAUNCHES["mont_mul_fq"] - before
+        ms = _median_ms(lambda: MS._root_inv(fops, root), 3)
+        log(f"root inverse of one affine level, G{fops.GROUP}: {launches} dependent mont_mul_fq "
+            f"launches, {ms:.3f} ms (median of 3) on {card}")
+    return {
+        "affine_pre": {
+            "n": n, "max_abs_err": err,
+            "ms": _median_ms(lambda: AK.affine_pre(S1, S2), 10),
+            "plain_ms": _median_ms(lambda: _chunked(AK.affine_pre_plain, n, P1, P2), 3),
+            # one Fq product; rows 2 x 49 in, n and d (24 each) and the code out
+            "imad": n * 2 * (2 * 144 + 12), "bytes": n * 4 * (2 * 49 + 2 * 24 + 1),
+        },
+        "affine_post": {
+            "n": n, "max_abs_err": post_err,
+            "ms": _median_ms(lambda: AK.affine_post(nn, inv, S1, S2, code), 10),
+            "plain_ms": _median_ms(lambda: _chunked(AK.affine_post_plain, n, nn, inv, P1, P2, code), 3),
+            # three Fq products; n, inv, 2 rows and the code in, one row out
+            "imad": n * 3 * 2 * (2 * 144 + 12), "bytes": n * 4 * (2 * 24 + 2 * 49 + 1 + 49),
+        },
+    }
+
+
+def prove_phase(label, asm, params, rs, check, card, dev, must_launch):
+    """One warm-up proof, then len(rs) - 1 timed proofs with the stage spans
+    and the launch counts, which start at 0 just before the timed proofs.
+    Every timed proof must pass ``check``; every kernel in must_launch must
+    have launched. Returns (proofs, launches)."""
+    from masp_tpu_torch.groth16 import create_proof_from_assembly
+    from masp_tpu_torch.kernels import LAUNCHES, reset_launches
+    from masp_tpu_torch.utils import tracing
+
+    t0 = time.perf_counter()
+    create_proof_from_assembly(asm, params, *rs[0], device=dev)
+    log(f"[{label}] warm-up proof: {time.perf_counter() - t0:.2f} s")
+    tracing.enable()
+    tracing.reset()
+    reset_launches()
+    times, proofs = [], []
+    for r, s in rs[1:]:
+        t0 = time.perf_counter()
+        proofs.append(create_proof_from_assembly(asm, params, r, s, device=dev))
+        times.append(time.perf_counter() - t0)
+    launches = dict(LAUNCHES)
+    stages = tracing.report()
+    tracing.enable(False)
+    log(f"[{label}] proofs: {[round(t, 4) for t in times]} s; median {np.median(times):.4f} s; "
+        f"{len(times) / sum(times):.3f} proofs/s on {card}")
+    for name, st in stages.items():
+        dev_ms = "n/a" if st["device_ms"] is None else f"{st['device_ms'] / st['count']:.2f} ms"
+        log(f"[{label}]   stage {name}: host {1e3 * st['host_s'] / st['count']:.2f} ms, stream {dev_ms} per proof")
+    log(f"[{label}] launches over {len(times)} proofs: {json.dumps(launches)}")
+    for name in must_launch:
+        if launches[name] <= 0:
+            raise AssertionError(f"[{label}] kernel {name} was not launched on the proof path")
+    for (r, s), proof in zip(rs[1:], proofs):
+        check(r, s, proof)
+    log(f"[{label}] all {len(proofs)} proofs pass verify_proof and equal the toxic-waste oracle")
+    return proofs, launches
+
+
+def profile_proof(label, asm, params, rs, dev, card):
+    """One proof under torch.profiler (device activity only): the device's
+    busy time against the wall time, and the kernels that take the most."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from masp_tpu_torch.groth16 import create_proof_from_assembly
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        create_proof_from_assembly(asm, params, *rs, device=dev)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    events = prof.key_averages()
+    busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+    log(f"[{label}] profiled proof: wall {wall_ms:.2f} ms, device busy {busy_ms:.2f} ms "
+        f"({100 * busy_ms / wall_ms:.1f}%, idle {100 - 100 * busy_ms / wall_ms:.1f}%) on {card}")
+    for e in sorted(events, key=lambda e: e.self_device_time_total, reverse=True)[:12]:
+        log(f"[{label}]   {e.self_device_time_total / 1e3:9.2f} ms {e.count:7d} calls  {e.key[:90]}")
 
 
 # --- main ------------------------------------------------------------------------------
@@ -356,15 +542,15 @@ def main(argv) -> int:
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     try:
-        from masp_tpu_torch.kernels import LAUNCHES, build, reset_launches
+        from masp_tpu_torch.kernels import build
     except ImportError as e:
         print(f"chip_smoke: masp_tpu_torch is not beside this script ({e})", file=sys.stderr)
         return 2
-    from masp_tpu_torch.groth16 import create_proof_from_assembly, generate_parameters
+    from masp_tpu_torch.groth16 import generate_parameters
     from masp_tpu_torch.groth16.generator import eval_at_tau
     from masp_tpu_torch.host.structures import prepare_verifying_key
     from masp_tpu_torch.host.verifier import verify_proof
-    from masp_tpu_torch.utils import tracing
+    from masp_tpu_torch.ops import msm_sorted as MS
 
     dev = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
@@ -402,36 +588,31 @@ def main(argv) -> int:
     u, v, w = eval_at_tau(asm, tau, m)
     pvk = prepare_verifying_key(params.vk)
     rs = [(rng.randrange(1, 1 << 250), rng.randrange(1, 1 << 250)) for _ in range(4)]
-    t0 = time.perf_counter()
-    create_proof_from_assembly(asm, params, *rs[0], device=dev)
-    log(f"warm-up proof: {time.perf_counter() - t0:.2f} s")
 
-    tracing.enable()
-    tracing.reset()
-    reset_launches()
-    times, proofs = [], []
-    for r, s in rs[1:]:
-        t0 = time.perf_counter()
-        proofs.append(create_proof_from_assembly(asm, params, r, s, device=dev))
-        times.append(time.perf_counter() - t0)
-    launches = dict(LAUNCHES)
-    stages = tracing.report()
-    tracing.enable(False)
-    log(f"proofs: {[round(t, 4) for t in times]} s; median {np.median(times):.4f} s; "
-        f"{len(times) / sum(times):.3f} proofs/s on {card}")
-    for name, st in stages.items():
-        dev_ms = "n/a" if st["device_ms"] is None else f"{st['device_ms'] / st['count']:.2f} ms"
-        log(f"  stage {name}: host {1e3 * st['host_s'] / st['count']:.2f} ms, stream {dev_ms} per proof")
-    log(f"launches over {len(times)} proofs: {json.dumps(launches)}")
-    for name, n in launches.items():
-        if n <= 0:
-            raise AssertionError(f"kernel {name} was not launched on the proof path")
-    for (r, s), proof in zip(rs[1:], proofs):
+    def check(r, s, proof):
         if not verify_proof(pvk, proof, publics):
             raise AssertionError("a proof failed the host pairing verifier")
         if proof != oracle_proof(u, v, w, z, tau, alpha, beta, delta, r, s, asm.num_inputs):
             raise AssertionError("a proof differs from the toxic-waste oracle")
-    log(f"all {len(proofs)} proofs pass verify_proof and equal the toxic-waste oracle")
+
+    # the main path: the default configuration, the batch-affine MSM ladder
+    _, launches = prove_phase("affine", asm, params, rs, check, card, dev, list(REPLACES))
+    # the projective scan ladder with the sequential reduction
+    scan_kernels = [k for k in REPLACES if not k.startswith("affine")]
+    default, MS.AFFINE_LADDER = MS.AFFINE_LADDER, False
+    try:
+        _, scan_launches = prove_phase("scan", asm, params, rs, check, card, dev, scan_kernels)
+    finally:
+        MS.AFFINE_LADDER = default
+    if scan_launches["affine_pre"] or scan_launches["affine_post"]:
+        raise AssertionError("[scan] the scan ladder launched the affine kernels")
+    if "--profile" in argv:
+        profile_proof("affine", asm, params, rs[1], dev, card)
+        MS.AFFINE_LADDER = False
+        try:
+            profile_proof("scan", asm, params, rs[1], dev, card)
+        finally:
+            MS.AFFINE_LADDER = default
 
     line = {"kernels": [{
         "name": name, "route": "cuda", "source": SOURCE[name], "replaces": REPLACES[name],
@@ -440,8 +621,8 @@ def main(argv) -> int:
         "library_ms": None} for name, k in kern.items()]}
     print(json.dumps(line))
     print(card)
-    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
-                                             "count": torch.cuda.device_count()}}))
+    # the run used one card, whatever the machine holds
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": 1}}))
     return 0
 
 

@@ -1,16 +1,18 @@
 """Groth16 prover, main path: witness -> NTT quotient -> MSMs -> proof.
 
-Port of masp_tpu/groth16/prover.py in its default configuration: window
+Port of masp_tpu/groth16/prover.py in its accelerator configuration: window
 c = 8, unsigned digits extracted on the device from the witness limbs, the
 boolean split of the l/a/b queries, the on-device a/b/c evaluation, and the
-projective scan MSM. Everything is enqueued on the current CUDA stream; the
-five query results are made affine on the device and fetched once, then the
-proof is assembled on the host.
+sorted MSM on the batch-affine ladder with the wide bucket reduction
+(``ops.msm_sorted.AFFINE_LADDER``; set it False for the projective scan
+ladder with the sequential reduction). Everything is enqueued on the
+current CUDA stream; the five query results are made affine on the device
+and fetched once, then the proof is assembled on the host.
 
 Departures from the reference that leave every result as it is: the
 windows of an MSM run batched (ops/msm_sorted.py), the three a/b/c NTTs run
 as one batch, and the bucket reduction of the four full-width G1 MSMs runs
-as one 4-lane chain.
+as one batch of four.
 """
 
 from __future__ import annotations

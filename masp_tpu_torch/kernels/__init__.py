@@ -15,6 +15,8 @@ LAUNCHES = {
     "g2_add": 0,
     "g1_add01": 0,
     "g2_add01": 0,
+    "affine_pre": 0,
+    "affine_post": 0,
 }
 
 

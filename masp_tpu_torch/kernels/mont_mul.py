@@ -16,12 +16,13 @@ from __future__ import annotations
 import ctypes
 import functools
 
+import numpy as np
 import torch
 
 from masp_tpu_torch import device_const as _const
 from masp_tpu_torch.kernels import LAUNCHES
 from masp_tpu_torch.kernels.build import library
-from masp_tpu_torch.ops.limbs import normalize, reduce_once
+from masp_tpu_torch.ops.limbs import ints_to_limbs, limbs_to_ints, normalize, reduce_once
 
 def _spread(L: int, device) -> torch.Tensor:
     """(L*L, 2L) 0/1 float64: product (i, j) -> column i + j."""
@@ -49,6 +50,21 @@ def _cols(x, M):
     return (x.to(torch.float64) @ M).to(torch.int64)
 
 
+def _redc_ints(spec, a, b):
+    """The same whole-number REDC on Python ints, row by row, for a few
+    rows (the width-1 Fermat chains, the Horner tails): there the limb
+    version's sixty tensor operations cost ten times the arithmetic.
+    U = (ab + mN) / R < R + N, and one conditional subtraction, as
+    reduce_once does: the same limbs for every input below R."""
+    R, N = spec.R, spec.modulus
+    out = []
+    for x, y in zip(limbs_to_ints(a.cpu().numpy()), limbs_to_ints(b.cpu().numpy())):
+        t = x * y
+        u = (t + (t * spec.n_prime % R) * N) >> spec.bits
+        out.append(u - N if u >= N else u)
+    return torch.as_tensor(ints_to_limbs(out, spec.L).astype(np.int32), device=a.device)
+
+
 def mont_mul_plain(spec, a, b):
     """Plain PyTorch Montgomery product; a, b (n, L) int limbs, returns
     (n, L) int32. Used on CPU tensors, and on the card as the kernel's
@@ -60,10 +76,12 @@ def mont_mul_plain(spec, a, b):
     by digit, so the limbs agree. The limb products sum into columns as
     exact float64 matrix products (each column < L 2^32 < 2^53), which keeps
     the plain version to a few dozen tensor operations: it runs in every CPU
-    test."""
+    test. Up to 16 rows run it on Python ints (``_redc_ints``)."""
     L = spec.L
     dev = a.device
     n = a.shape[0]
+    if n <= 16:
+        return _redc_ints(spec, a, b)
     a = a.to(torch.int64)
     b = b.to(torch.int64)
     # T = a * b as 2L canonical limbs

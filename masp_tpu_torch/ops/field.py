@@ -36,7 +36,8 @@ class FieldSpec:
         # -N^{-1} mod 2^16
         self.n0inv = (-pow(modulus, -1, 1 << LIMB_BITS)) % (1 << LIMB_BITS)
         # -N^{-1} mod R, for the plain version's whole-number reduction
-        self.N_PRIME = int_to_limbs((-pow(modulus, -1, self.R)) % self.R, n_limbs)
+        self.n_prime = (-pow(modulus, -1, self.R)) % self.R
+        self.N_PRIME = int_to_limbs(self.n_prime, n_limbs)
         self.N = int_to_limbs(modulus, n_limbs)
         self.ONE_MONT = int_to_limbs(self.R_mod, n_limbs)
         self.R2_MONT = int_to_limbs(self.R2_mod, n_limbs)
@@ -132,48 +133,70 @@ def mont_inv(spec: FieldSpec, a):
     return mont_pow_fixed(spec, a, spec.inv_exp_bits)
 
 
-def mont_inv_small(spec: FieldSpec, a):
+def mont_inv_small(spec: FieldSpec, a, mul=None):
     """Fermat inversion in 4-bit fixed windows: ceil(bits/4) rounds of four
     squarings and one table multiply (~475 dependent products instead of
-    ~760). Bit-identical to mont_inv."""
+    ~760). Bit-identical to mont_inv. ``mul(x, y)`` replaces the Montgomery
+    product (the plain versions pass the plain one)."""
+    if mul is None:
+        def mul(x, y):
+            return mont_mul(spec, x, y)
     table = [one_like(spec, a), a]
     for _ in range(2, 16):
-        table.append(mont_mul(spec, table[-1], a))
+        table.append(mul(table[-1], a))
     nibs = spec.inv_exp_nibbles
     acc = table[nibs[0]]
     for nib in nibs[1:]:
         for _ in range(4):
-            acc = mont_sqr(spec, acc)
-        acc = mont_mul(spec, acc, table[nib])
+            acc = mul(acc, acc)
+        acc = mul(acc, table[nib])
     return acc
 
 
+def tree_batch_inv(spec: FieldSpec, d, mul=None, root_inv=None):
+    """Exact batched inversion of w non-zero elements along axis 0, w a
+    power of two: a product tree over contiguous halves (p[:h] * p[h:],
+    w - 1 products in log2(w) launches), ``root_inv`` on the (1, ...) root
+    (by default mont_inv_small over ``mul``), and the seeded down-sweep
+    (2 (w - 1) products). ``mul`` defaults to mont_mul; the plain versions
+    pass the plain product, Fq2 passes its own product and root inverse.
+    The inverse of a non-zero element is unique and fully reduced, so any
+    tree shape gives the same limbs."""
+    w = d.shape[0]
+    if w == 0 or w & (w - 1):
+        raise ValueError(f"the product-tree inversion takes a power-of-two lane count, got {w}")
+    if mul is None:
+        def mul(x, y):
+            return mont_mul(spec, x, y)
+    if root_inv is None:
+        def root_inv(r):
+            return mont_inv_small(spec, r, mul=mul)
+    prods = [d]
+    while prods[-1].shape[0] > 1:
+        p = prods[-1]
+        h = p.shape[0] // 2
+        prods.append(mul(p[:h], p[h:]))
+    inv = root_inv(prods[-1])
+    for p in reversed(prods[:-1]):
+        h = p.shape[0] // 2
+        inv = torch.cat([mul(inv, p[h:]), mul(inv, p[:h])], dim=0)
+    return inv
+
+
 def batch_mont_inv(spec: FieldSpec, a):
-    """Batch inversion over the leading axis: Hillis-Steele prefix products
-    (log2(n) full-width multiplies), one Fermat inversion of the total, and
-    the prefix/suffix unwind. Zero elements map to zero."""
+    """Batch inversion over the leading axis of any length: zeros become
+    ones and the batch is padded with ones to a power of two for
+    tree_batch_inv (one Fermat inversion of the root). Zero elements map to
+    zero."""
     n = a.shape[0]
     one = one_like(spec, a)
     iz = is_zero(a)
     safe = torch.where(iz[..., None], one, a)
-    steps = max(1, (n - 1).bit_length())
-
-    def prefix(p):
-        for k in range(steps):
-            shift = 1 << k
-            if shift >= n:
-                break
-            shifted = torch.cat([one[:shift], p[:-shift]], dim=0)
-            p = mont_mul(spec, p, shifted)
-        return p
-
-    pre = prefix(safe)
-    total_inv = mont_inv_small(spec, pre[-1])
-    suffix = prefix(safe.flip(0)).flip(0)
-    pfx_prev = torch.cat([one[:1], pre[:-1]], dim=0)
-    sfx_next = torch.cat([suffix[1:], one[:1]], dim=0)
-    invs = mont_mul(spec, mont_mul(spec, pfx_prev, sfx_next), total_inv)
-    return torch.where(iz[..., None], torch.zeros_like(a), invs)
+    w = 1 << (n - 1).bit_length()
+    if w > n:
+        safe = torch.cat([safe, one[:1].expand((w - n,) + a.shape[1:])], dim=0)
+    invs = tree_batch_inv(spec, safe)
+    return torch.where(iz[..., None], torch.zeros_like(a), invs[:n])
 
 
 def to_mont(spec: FieldSpec, a):
@@ -210,6 +233,6 @@ def decode(spec: FieldSpec, arr, mont: bool = True) -> list[int]:
 __all__ = [
     "FieldSpec", "FR", "FQ", "mont_mul", "mont_sqr", "add", "sub", "neg",
     "select", "is_zero", "one_like", "mont_pow_fixed", "mont_inv",
-    "mont_inv_small", "batch_mont_inv", "to_mont", "from_mont", "encode",
+    "mont_inv_small", "tree_batch_inv", "batch_mont_inv", "to_mont", "from_mont", "encode",
     "decode",
 ]

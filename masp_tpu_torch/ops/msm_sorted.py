@@ -1,23 +1,33 @@
-"""Sorted-prefix Pippenger MSM, the projective scan path.
+"""Sorted-prefix Pippenger MSM: the batch-affine ladder (the default) and
+the projective scan ladder.
 
-Port of masp_tpu/ops/msm_sorted.py as the prover runs it by default off the
-batch-affine ladder (``window_buckets``, ``bucket_reduce_horner`` in its
-sequential form, ``masked_sum``), with unsigned in-graph digits. Per c-bit
-window:
+Port of masp_tpu/ops/msm_sorted.py as the prover runs it (``window_buckets``
+and its flat form ``window_buckets_flat``, ``bucket_reduce_horner`` in its
+sequential and wide forms, ``masked_sum``), with unsigned in-graph digits.
+Per c-bit window:
 
 1. sort the point indices by digit (stable: equal digits keep index order,
    as jax.lax.sort_key_val does, so the bucket limbs match the reference);
-2. gather the points into sorted order as packed [X | Y | Z] rows;
-3. build a dyadic prefix tree over the sorted points with a halving ladder
-   of point adds (the leaf level in the Z in {0, mont-1} form);
+2. gather the points into sorted order as packed rows;
+3. build a dyadic prefix tree over the sorted points with a halving ladder:
+   with ``AFFINE_LADDER`` (the JAX package's accelerator default), the
+   lowest ``AFFINE_LEVELS`` levels as batch-affine adds over all windows at
+   once (one batched inversion per level) and the levels above as
+   projective adds; without it, projective adds throughout (the leaf level
+   in the Z in {0, mont-1} form);
 4. read each bucket's sum as a difference of two exclusive-prefix queries at
    the bucket boundaries (searchsorted, right side);
-5. weighted bucket reduction and Horner over windows.
+5. weighted bucket reduction (with the affine ladder a suffix scan and a
+   halving ladder, else a running-sum chain) and Horner over windows.
 
 Windows are independent, so every step runs all windows in one batch (one
-kernel launch per ladder level), where the reference scans them in turn; the
-arithmetic per window is the same, so are the limbs. Points are packed rows
-(N, rowlen) int32: 72 limbs on G1, 144 on G2 (ops/weierstrass.rowlen).
+kernel launch per ladder level), where the reference's scan path runs them in
+turn; the arithmetic per window is the same, so are the limbs. Projective
+points are packed rows (N, rowlen) int32: 72 limbs on G1, 144 on G2
+(ops/weierstrass.rowlen); affine nodes are rows [x | y | f] of 2k + 1.
+
+The two ladders give the same points but not the same projective limbs: an
+affine node is the canonical affine sum, a projective node carries its own Z.
 """
 
 from __future__ import annotations
@@ -26,6 +36,7 @@ import numpy as np
 import torch
 
 from masp_tpu_torch import device_const
+from masp_tpu_torch.kernels import affine as AK
 from masp_tpu_torch.kernels import point_add as PA
 from masp_tpu_torch.ops import field as F
 from masp_tpu_torch.ops.field import FQ
@@ -80,61 +91,107 @@ def _halve(fops, cur, leaf01: bool):
     return PA.point_add(fops.GROUP, pairs[:, :rl], pairs[:, rl:], leaf01)
 
 
-def window_buckets(fops, points_packed, digits, c: int):
-    """Per-window bucket sums (W, B, rowlen), B = 2^c: the data-parallel bulk
-    of the MSM. points_packed (N, rowlen) with N a power of two (pad with
-    identity rows and zero digits); digits (N, W) unsigned."""
-    N, rl = points_packed.shape
-    n_windows = digits.shape[1]
-    B = 1 << c
+def _levels(N: int) -> int:
     levels = (N - 1).bit_length()
     if N != 1 << levels:
         raise ValueError("pad N to a power of two")
-    dev = points_packed.device
+    return levels
 
+
+def _sorted_windows(digits, c: int):
+    """perm (W, N): each window's point indices sorted by digit (stable);
+    bounds (W, B): bounds[w, k] = #{digits[:, w] <= k}, the exclusive prefix
+    boundary of bucket k."""
+    n_windows = digits.shape[1]
+    B = 1 << c
     keys = digits.T.to(torch.int64).contiguous()  # (W, N)
     sorted_keys, perm = torch.sort(keys, dim=1, stable=True)
-    kvals = torch.arange(B, dtype=torch.int64, device=dev).expand(n_windows, B).contiguous()
-    # bounds[w, k] = #{digits[:, w] <= k}, the exclusive prefix boundary
-    bounds = torch.searchsorted(sorted_keys, kvals, right=True)
+    kvals = torch.arange(B, dtype=torch.int64, device=digits.device).expand(n_windows, B).contiguous()
+    return perm, torch.searchsorted(sorted_keys, kvals, right=True)
 
-    # up-sweep over all windows at once: nodes[l] holds, per window, the sums
-    # of sorted points [j 2^l, (j+1) 2^l); pairs never straddle windows
+
+def _take(nodes, idx):
+    """Rows at node indices idx (W, B) of one level's (W * n_l, r) rows."""
+    n_windows = idx.shape[0]
+    wsel = torch.arange(n_windows, device=idx.device)[:, None]
+    return nodes.reshape(n_windows, -1, nodes.shape[-1])[wsel, idx]
+
+
+def _bucket_sums(fops, gather, bounds, levels: int):
+    """(W, B, rowlen) bucket sums from the prefix tree: exclusive-prefix
+    queries at the bucket boundaries, then bucket k = Q[k] - Q[k-1] with
+    Q[-1] = identity. ``gather(lv, idx)`` gives level lv's nodes at the
+    (W, B) indices idx as projective rows."""
+    n_windows, B = bounds.shape
+    dev = bounds.device
+    N = 1 << levels
+    acc = identity_rows(fops, (n_windows, B), dev)
+    for lv in range(levels + 1):
+        idx = torch.clamp(2 * (bounds >> (lv + 1)), max=(N >> lv) - 1)
+        bit = (bounds >> lv) & 1
+        acc = torch.where(bit[..., None] != 0, _add(fops, acc, gather(lv, idx)), acc)
+    qprev = torch.cat([identity_rows(fops, (n_windows, 1), dev), acc[:, :-1]], dim=1)
+    return _add(fops, acc, _g_neg(fops, qprev))
+
+
+def window_buckets(fops, points_packed, digits, c: int):
+    """Per-window bucket sums (W, B, rowlen), B = 2^c: the data-parallel bulk
+    of the MSM. points_packed (N, rowlen) with N a power of two (pad with
+    identity rows and zero digits); digits (N, W) unsigned. With the affine
+    ladder on this is ``window_buckets_flat``; else the projective scan
+    ladder, nodes[l][j] = the sum of sorted points [j 2^l, (j+1) 2^l)."""
+    if _affine_on(fops):
+        return window_buckets_flat(fops, points_packed, digits, c)
+    levels = _levels(points_packed.shape[0])
+    perm, bounds = _sorted_windows(digits, c)
+    # up-sweep over all windows at once; pairs never straddle windows
     cur = points_packed[perm.reshape(-1)]  # (W*N, rowlen)
     nodes = [cur]
     for lv in range(levels):
         cur = _halve(fops, cur, leaf01=lv == 0)
         nodes.append(cur)
+    return _bucket_sums(fops, lambda lv, idx: _take(nodes[lv], idx), bounds, levels)
 
-    # exclusive-prefix queries at the B bucket boundaries
-    acc = identity_rows(fops, (n_windows, B), dev)
-    wsel = torch.arange(n_windows, device=dev)[:, None]
-    for lv in range(levels + 1):
-        n_l = N >> lv
-        idx = torch.clamp(2 * (bounds >> (lv + 1)), max=n_l - 1)
-        bit = (bounds >> lv) & 1
-        gath = nodes[lv].reshape(n_windows, n_l, rl)[wsel, idx]
-        acc = torch.where(bit[..., None] != 0, _add(fops, acc, gath), acc)
 
-    # bucket k = Q[k] - Q[k-1], Q[-1] = identity
-    qprev = torch.cat([identity_rows(fops, (n_windows, 1), dev), acc[:, :-1]], dim=1)
-    return _add(fops, acc, _g_neg(fops, qprev))
+def _window_sums_wide(fops, buckets):
+    """(Q, W, B, rowlen) -> (Q, W, rowlen) sum_k k bucket[k]: a suffix scan
+    along the bucket axis (log2 B steps), then sum_{j >= 1} S[j] by a
+    halving ladder over the identity-padded suffixes."""
+    Q, n_windows, B, rl = buckets.shape
+    dev = buckets.device
+    cur = buckets
+    d = 1
+    while d < B:
+        shifted = torch.cat([cur[:, :, d:], identity_rows(fops, (Q, n_windows, d), dev)], dim=2)
+        cur = _add(fops, cur, shifted)
+        d *= 2
+    Bp = 1 << (B - 2).bit_length() if B > 2 else 1
+    cur = torch.cat([cur[:, :, 1:], identity_rows(fops, (Q, n_windows, Bp - (B - 1)), dev)], dim=2)
+    while cur.shape[2] > 1:
+        pairs = cur.reshape(Q, n_windows, -1, 2 * rl)
+        cur = _add(fops, pairs[..., :rl], pairs[..., rl:])
+    return cur[:, :, 0]
 
 
 def bucket_reduce_horner(fops, buckets, c: int):
     """(Q, W, B, rowlen) bucket sums of Q independent MSMs -> (Q, rowlen).
 
-    window[w] = sum_k k * bucket[w, k] by the running-suffix trick, then
-    Horner over windows with c doublings between them. The Q MSMs share
-    every launch; each one's arithmetic is what it would be alone."""
+    window[w] = sum_k k * bucket[w, k], by ``_window_sums_wide`` where the
+    affine ladder is on (the reference pairs the two), else by the
+    running-suffix chain (B - 1 dependent steps); then Horner over windows
+    with c doublings between them. The Q MSMs share every launch; each
+    one's arithmetic is what it would be alone."""
     Q, n_windows, B, rl = buckets.shape
     dev = buckets.device
-    running = identity_rows(fops, (Q, n_windows), dev)
-    acc = running
-    for j in range(B - 1):
-        k = B - 1 - j
-        running = _add(fops, running, buckets[:, :, k])
-        acc = _add(fops, acc, running)
+    if _affine_on(fops):
+        acc = _window_sums_wide(fops, buckets)
+    else:
+        running = identity_rows(fops, (Q, n_windows), dev)
+        acc = running
+        for j in range(B - 1):
+            k = B - 1 - j
+            running = _add(fops, running, buckets[:, :, k])
+            acc = _add(fops, acc, running)
     out = identity_rows(fops, (Q,), dev)
     for j in range(n_windows):
         out = _add(fops, out, acc[:, n_windows - 1 - j])
@@ -162,9 +219,7 @@ def masked_sum(fops, points_packed, bits):
     one halving ladder (N-1 adds; the leaf level in the Z in {0, mont-1}
     form). Returns one projective row (rowlen,)."""
     N = points_packed.shape[0]
-    levels = (N - 1).bit_length()
-    if N != 1 << levels:
-        raise ValueError("pad N to a power of two")
+    levels = _levels(N)
     ident = identity_rows(fops, (N,), points_packed.device)
     cur = torch.where(bits.reshape(N, 1) != 0, points_packed, ident)
     for lv in range(levels):
@@ -172,8 +227,177 @@ def masked_sum(fops, points_packed, bits):
     return cur[0]
 
 
+# --- batch-affine ladder -------------------------------------------------------
+#
+# Within a ladder level every add is independent, so the lowest levels run
+# in affine form with ONE batched inversion per level over all windows
+# (product tree, ~3 products per lane, and one Fermat chain on the root):
+# slope and x3/y3 cost 4 products per add on G1 against 12 for the complete
+# projective add, with branch-free lanes for doubling, P + (-P) and the
+# identity. Level l holds N/2^l of the adds, so the savings halve per level
+# while the root's Fermat chain stays; the levels above AFFINE_LEVELS are
+# projective. Precondition: the rows are encoded affine points or identity
+# pads (Z in {0, mont-1}), as the parameter queries are.
+#
+# Storage stays in natural sorted order at every level: level l + 1 pairs
+# rows (2j, 2j + 1) of level l through even/odd views of one tensor, as the
+# scan ladder does. The reference stores the affine levels partially
+# bit-reversed (_sigma, _node_pos, _fold_halves*) so that its (L, B1, 128)
+# TPU tiles fold contiguously; node j of level l is the same canonical
+# affine sum in either storage, so the buckets come out with the same limbs.
+AFFINE_LADDER = True
+AFFINE_LEVELS = 4
+
+
+def _affine_on(fops) -> bool:
+    """The affine ladder (and the wide reduction it pairs with) for the
+    Weierstrass groups G1 and G2 while AFFINE_LADDER is set: the JAX
+    package's default on its accelerator impl."""
+    return bool(AFFINE_LADDER) and getattr(fops, "GROUP", None) in (1, 2)
+
+
+def _coord_eq(fops, a, b):
+    return (a == b).flatten(start_dim=a.dim() - len(fops.coord_shape)).all(dim=-1)
+
+
+def _coord_sel(fops, cond, a, b):
+    c = cond.reshape(cond.shape + (1,) * len(fops.coord_shape))
+    return torch.where(c != 0, a, b)
+
+
+def _coord_neg(fops, y):
+    # per-coefficient negation mod q covers Fq (..., L) and Fq2 (..., 2, L)
+    return F.neg(FQ, y)
+
+
+def _root_inv(fops, r):
+    """Inverse of the (1, ...) product-tree root by the 4-bit-window Fermat
+    chain; on Fq2 one Fq inversion of the norm: 1/(r0 + r1 u) =
+    (r0 - r1 u) / (r0^2 + r1^2)."""
+    if len(fops.coord_shape) == 1:
+        return F.mont_inv_small(FQ, r)
+    r0, r1 = r[..., 0, :], r[..., 1, :]
+    norm = F.add(FQ, F.mont_mul(FQ, r0, r0), F.mont_mul(FQ, r1, r1))
+    ni = F.mont_inv_small(FQ, norm)
+    return torch.stack([F.mont_mul(FQ, r0, ni), F.neg(FQ, F.mont_mul(FQ, r1, ni))], dim=-2)
+
+
+def _tree_batch_inv(fops, d):
+    """Exact batched inversion of (w, ...) non-zero elements, w a power of
+    two (ValueError otherwise): F.tree_batch_inv, which every affine level
+    inverts its denominators with, over fops' product and root inverse."""
+    return F.tree_batch_inv(FQ, d, fops.mul, lambda r: _root_inv(fops, r))
+
+
+def _affine_level(fops, p1, p2):
+    """The G2 affine level: one ladder level of batch-affine additions
+    composed from fops' operations (Fq2 products through the Fq kernel), as
+    the reference runs G2, whose kernels take one coordinate axis. G1 runs
+    the same formula in kernels/affine.py. p* = (x, y, f) with f != 0
+    marking the identity and finite coordinates canonical. Branch-free:
+    chord add, tangent doubling (x1 == x2, y1 == y2), P + (-P) -> identity,
+    identity pass-throughs; one batched inversion. Identity results come
+    out (0, mont-1) with f = 1."""
+    x1, y1, f1 = p1
+    x2, y2, f2 = p2
+    mul, add, sub = fops.mul, fops.add, fops.sub
+    one = fops.one_like(x1)
+    i1, i2 = f1 != 0, f2 != 0
+    fin = ~i1 & ~i2
+    xeq = _coord_eq(fops, x1, x2)
+    yneg = _coord_eq(fops, y1, _coord_neg(fops, y2))
+    res_inf = fin & xeq & yneg
+    use_dbl = fin & xeq & ~yneg
+    sq1 = mul(x1, x1)
+    n_eff = _coord_sel(fops, use_dbl, add(add(sq1, sq1), sq1), sub(y2, y1))
+    live = fin & ~res_inf
+    d_eff = _coord_sel(fops, use_dbl, add(y1, y1), sub(x2, x1))
+    d_eff = _coord_sel(fops, live, d_eff, one)
+    lam = mul(n_eff, _tree_batch_inv(fops, d_eff))
+    x3 = sub(sub(mul(lam, lam), x1), x2)
+    y3 = sub(mul(lam, sub(x1, x3)), y1)
+    xo = _coord_sel(fops, i1, x2, _coord_sel(fops, i2, x1, x3))
+    yo = _coord_sel(fops, i1, y2, _coord_sel(fops, i2, y1, y3))
+    fo = ((i1 & i2) | res_inf).to(torch.int32)
+    xo = _coord_sel(fops, fo, fops.zeros_like(xo), xo)
+    yo = _coord_sel(fops, fo, one, yo)
+    return xo, yo, fo
+
+
+def _aff_coords(fops, rows):
+    """(n, 2k+1) affine rows -> (x, y, f) with fops' coordinate shape."""
+    k = rows.shape[-1] // 2
+    shape = rows.shape[:-1] + tuple(fops.coord_shape)
+    return rows[:, :k].reshape(shape), rows[:, k : 2 * k].reshape(shape), rows[:, 2 * k]
+
+
+def _aff_rows(x, y, f):
+    n = x.shape[0]
+    return torch.cat([x.reshape(n, -1), y.reshape(n, -1), f.to(torch.int32)[:, None]], dim=1)
+
+
+def _affine_halve(fops, rows):
+    """One affine ladder level: (n, 2k+1) rows -> sums of adjacent pairs
+    (n/2, 2k+1), one batched inversion over all of them. G1 runs the affine
+    kernels; G2 composes the level from Fq2 operations, as the reference
+    does (its kernels take one coordinate axis)."""
+    r = rows.shape[-1]
+    pairs = rows.reshape(-1, 2 * r)
+    p1, p2 = pairs[:, :r], pairs[:, r:]
+    if fops.GROUP == 1:
+        return AK.affine_level(p1, p2)
+    return _aff_rows(*_affine_level(fops, _aff_coords(fops, p1), _aff_coords(fops, p2)))
+
+
+def _lift(fops, rows):
+    """Affine rows [x | y | f] (..., 2k+1) -> projective rows [x | y | Z]
+    with Z = f ? 0 : mont-1."""
+    k = rows.shape[-1] // 2
+    one = identity_rows(fops, (), rows.device)[k : 2 * k]  # the identity's Y is mont-1
+    z = torch.where(rows[..., 2 * k :] != 0, torch.zeros_like(one), one)
+    return torch.cat([rows[..., : 2 * k], z], dim=-1)
+
+
+def window_buckets_flat(fops, points_packed, digits, c: int):
+    """window_buckets on the batch-affine ladder: the lowest
+    K = min(AFFINE_LEVELS, log2 N) levels affine over all windows' lanes at
+    once, the levels above projective; the same prefix queries and bucket
+    differences as the scan ladder, lifting the affine nodes' Z from their
+    flags. The affine levels need a power-of-two lane count W * N
+    (ValueError otherwise: c = 10 or 11 gives 26 or 24 windows)."""
+    N, rl = points_packed.shape
+    n_windows = digits.shape[1]
+    levels = _levels(N)
+    K = max(0, min(AFFINE_LEVELS, levels))
+    lanes = n_windows * N
+    if K and lanes & (lanes - 1):
+        raise ValueError(
+            f"the batch-affine ladder needs a power-of-two lane count, got {n_windows} windows x "
+            f"{N} points (c = {c}): choose c with a power-of-two window count or set AFFINE_LADDER = False")
+    k = rl // 3
+    perm, bounds = _sorted_windows(digits, c)
+    # affine source rows [x | y | f], f = (Z == 0): the flag rides the row gather
+    inf = fops.is_zero(points_packed[:, 2 * k :].reshape((N,) + tuple(fops.coord_shape)))
+    src = torch.cat([points_packed[:, : 2 * k], inf.to(torch.int32)[:, None]], dim=1)
+    cur = src[perm.reshape(-1)]  # (W*N, 2k+1)
+    aff = [cur]
+    for _ in range(K):
+        cur = _affine_halve(fops, cur)
+        aff.append(cur)
+    curp = _lift(fops, cur)
+    proj = {K: curp}
+    for lv in range(K, levels):
+        curp = _halve(fops, curp, leaf01=False)
+        proj[lv + 1] = curp
+
+    def gather(lv, idx):
+        return _lift(fops, _take(aff[lv], idx)) if lv <= K else _take(proj[lv], idx)
+
+    return _bucket_sums(fops, gather, bounds, levels)
+
+
 __all__ = [
-    "n_windows_for", "windows_from_limbs", "window_buckets",
+    "n_windows_for", "windows_from_limbs", "window_buckets", "window_buckets_flat",
     "bucket_reduce_horner", "sorted_msm", "sorted_msm_from_limbs",
-    "masked_sum",
+    "masked_sum", "AFFINE_LADDER", "AFFINE_LEVELS",
 ]

@@ -93,6 +93,21 @@ def test_mont_mul_broadcasts_symmetrically(name):
 
 
 @pytest.mark.parametrize("name", ["Fr", "Fq"])
+def test_plain_mont_mul_small_batches_match_limb_path(name):
+    """Up to 16 rows the plain product runs on Python ints: the same limbs
+    as the limb path, inputs at or above the modulus (below R) included."""
+    spec, _ = SPECS[name]
+    rng = np.random.default_rng(7)
+    edge = [0, 1, spec.modulus - 1, spec.modulus, spec.modulus + 1, spec.R - 1]
+    vals = edge + [int(rng.integers(0, 1 << 62)) * spec.R // (1 << 62) for _ in range(42)]
+    a = _t(LT.ints_to_limbs(vals, spec.L))
+    b = _t(LT.ints_to_limbs(vals[::-1], spec.L))
+    want = MK.mont_mul_plain(spec, a, b)  # 48 rows: the limb path
+    got = torch.cat([MK.mont_mul_plain(spec, a[i : i + 16], b[i : i + 16]) for i in range(0, 48, 16)])
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("name", ["Fr", "Fq"])
 def test_inversions_match_jax_and_host(name):
     spec, jspec = SPECS[name]
     xs = _ints(spec.modulus, 13, 4)

@@ -4,7 +4,7 @@ package (groth16/domain.py, ops/msm_sorted.py) and the host reference
 
 The MSM checks against the JAX functions themselves compile minutes of XLA
 on the CPU, so they are marked slow; the default run holds the same outputs
-to host bigint sums."""
+to host bigint sums, on both the batch-affine and the scan ladder."""
 
 import os
 import random
@@ -39,6 +39,17 @@ def _one_torch_thread():
     torch.set_num_threads(n)
 
 C = 4
+
+
+@pytest.fixture(params=["affine", "scan"])
+def ladder(request, monkeypatch):
+    """Both MSM configurations: the batch-affine ladder with the wide
+    reduction (the default) and the projective scan ladder. The affine case
+    runs one affine level, a quarter of the CPU's root-inverse chains;
+    tests/test_torch_affine.py holds the multi-level ladder."""
+    monkeypatch.setattr(MS, "AFFINE_LADDER", request.param == "affine")
+    monkeypatch.setattr(MS, "AFFINE_LEVELS", 1)
+    return request.param
 
 
 def _fr_vals(n, seed):
@@ -130,7 +141,7 @@ def _port(group, pts):
     return dec(*enc(pts))
 
 
-def test_window_buckets_match_host():
+def test_window_buckets_match_host(ladder):
     n = 64
     pts = _points(HG1, n, 3)
     scal = _scalars(n, 4)
@@ -151,9 +162,10 @@ def test_window_buckets_match_host():
 
 
 @pytest.mark.parametrize("group,n", [(1, 64), (2, 16)])
-def test_sorted_msm_and_masked_sum_match_host(group, n):
+def test_sorted_msm_and_masked_sum_match_host(ladder, group, n):
     """G1 runs the whole MSM; G2's bucket reduction is the one the prover
-    tests already run, so G2 checks the buckets' total and the masked sum."""
+    tests already run, so G2 checks the buckets' total. The masked sum takes
+    no ladder option, so only the scan case checks it."""
     grp = HG1 if group == 1 else HG2
     fops = W.G1Ops if group == 1 else W.G2Ops
     pts = _points(grp, n, 5 + group)
@@ -171,6 +183,8 @@ def test_sorted_msm_and_masked_sum_match_host(group, n):
             if s & 15 == 1:
                 want = want + p
     assert _decode(group, got) == _port(group, [want])[0]
+    if ladder == "affine":
+        return
     bits = torch.as_tensor([s & 1 for s in scal], dtype=torch.int32)
     want_bits = grp.identity()
     for p, b in zip(pts, bits.tolist()):
@@ -180,9 +194,12 @@ def test_sorted_msm_and_masked_sum_match_host(group, n):
 
 
 @pytest.mark.slow
-def test_msm_limbs_match_jax():
-    """Bucket limbs, MSM result limbs and masked-sum limbs equal the JAX
-    functions' (minutes of XLA compilation on the CPU)."""
+def test_msm_limbs_match_jax(monkeypatch):
+    """Bucket limbs, MSM result limbs and masked-sum limbs of the scan
+    ladder equal the JAX functions' (minutes of XLA compilation on the CPU).
+    The port is pinned to the scan ladder, which the reference's compact
+    impl runs; tests/test_torch_affine.py holds the affine ladder."""
+    monkeypatch.setattr(MS, "AFFINE_LADDER", False)
     n = 64
     pts = _points(HG1, n, 8)
     scal = _scalars(n, 9)

@@ -23,6 +23,7 @@ from masp_tpu_torch import groth16 as TG
 from masp_tpu_torch.groth16 import prover as TP
 from masp_tpu_torch.groth16.domain import Domain
 from masp_tpu_torch.ops import field as F
+from masp_tpu_torch.ops import msm_sorted as MS
 from masp_tpu_torch.host.structures import prepare_verifying_key
 from masp_tpu_torch.host.verifier import verify_proof
 from tests.test_groth16 import CubicCircuit
@@ -111,6 +112,17 @@ def _witness(circuit):
     return cs, TG.assembly_from_arrays(cs.num_inputs, indptr, var_idx, coeffs, P._assignment_u64(cs))
 
 
+@pytest.fixture(params=["affine", "scan"])
+def ladder(request, monkeypatch):
+    """Both prover configurations: the batch-affine MSM ladder with the wide
+    reduction (the default) and the projective scan ladder. The affine case
+    runs one affine level, a quarter of the CPU's root-inverse chains;
+    tests/test_torch_affine.py holds the multi-level ladder."""
+    monkeypatch.setattr(MS, "AFFINE_LADDER", request.param == "affine")
+    monkeypatch.setattr(MS, "AFFINE_LEVELS", 1)
+    return request.param
+
+
 @pytest.fixture
 def small_window(monkeypatch):
     # c = 4 halves the sequential bucket-reduction steps on the CPU; the
@@ -118,7 +130,7 @@ def small_window(monkeypatch):
     monkeypatch.setattr(TP, "MSM_C", 4)
 
 
-def test_cubic_proof_matches_host_reference(small_window):
+def test_cubic_proof_matches_host_reference(small_window, ladder):
     params, _ = _host_params(CubicCircuit())
     tparams = _port_params(params)
     cs, asm = _witness(CubicCircuit(x=3))
@@ -131,7 +143,7 @@ def test_cubic_proof_matches_host_reference(small_window):
     assert not any(k.endswith("_small") for k in tparams.device)
 
 
-def test_split_proof_matches_host_reference(small_window, monkeypatch):
+def test_split_proof_matches_host_reference(small_window, ladder, monkeypatch):
     """A circuit with bit wires, the boolean split forced on by a lower
     threshold: the l/a/b queries each run a masked sum plus a full MSM."""
     monkeypatch.setattr(TP, "MSM_SPLIT_MIN", 2)
