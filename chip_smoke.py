@@ -1,13 +1,15 @@
 #!/usr/bin/env python3
 """Smoke run of masp_tpu_torch on one NVIDIA GPU: builds the CUDA kernels,
 holds each against its plain PyTorch version at the main path's shapes,
-then proves a Spend-shaped Groth16 circuit three times in each MSM
-configuration (the batch-affine ladder, the default, then the projective
-scan ladder) and checks every proof with the host pairing verifier and
-against a toxic-waste oracle.
+runs the port's two measurement tools at full size (the kernel
+microbenchmark and the tensor-core Montgomery experiment, whose int8 and
+Montgomery kernels are held the same way first), then proves a Spend-shaped
+Groth16 circuit three times in each MSM configuration (the batch-affine
+ladder, the default, then the projective scan ladder) and checks every proof
+with the host pairing verifier and against a toxic-waste oracle.
 
     python3 chip_smoke.py            # everything (one card)
-    python3 chip_smoke.py --kernels  # build and kernel checks only
+    python3 chip_smoke.py --kernels  # build, kernel checks and the tools only
     python3 chip_smoke.py --profile  # also one profiled proof per configuration
 
 The circuit is a seeded synthetic R1CS with the Spend circuit's shape
@@ -50,10 +52,13 @@ SPEND = {"inputs": 8, "aux": 100_497, "constraints": 100_645, "nnz_a": 262_108,
          "nnz_b": 101_876, "nnz_c": 209_066, "a_density": 86_931,
          "b_density": 62_170, "bool_aux": 68_418, "bool_a": 68_100, "bool_b": 50_337}
 
-# peak rates of one H100 SXM at its 700 W limit: HBM bandwidth (data sheet)
-# and 32-bit integer multiply-adds: 132 SMs x 64 INT32 lanes x 1.98 GHz boost
+# peak rates of one H100 SXM at its 700 W limit: HBM bandwidth (data sheet);
+# 32-bit integer multiply-adds: 132 SMs x 64 INT32 lanes x 1.98 GHz boost;
+# int8 tensor-core multiply-adds: the data sheet's dense 1,979 int8 TOPS / 2
 HBM_BYTES_PER_S = 3.35e12
 IMAD_PER_S = 132 * 64 * 1.98e9
+INT8_MAC_PER_S = 989.5e12
+L2_BYTES = 50 * 2**20  # the H100 SXM's L2 cache
 
 REPLACES = {
     "mont_mul_fr": "masp_tpu/kernels/field_kernels.py:350",
@@ -64,10 +69,21 @@ REPLACES = {
     "g2_add01": "masp_tpu/kernels/field_kernels.py:397",
     "affine_pre": "masp_tpu/kernels/field_kernels.py:257",
     "affine_post": "masp_tpu/kernels/field_kernels.py:299",
+    "int8_dot": "tools/bench_kernel_micro.py:129",
+    "int8_dot_loop": "tools/bench_kernel_micro.py:154",
+    "mont_mul_mxu": "tools/exp_mxu_mont.py:191",
 }
-SOURCE = {k: "masp_tpu_torch/csrc/" + ("mont_mul.cu" if k.startswith("mont") else
-                                       "affine.cu" if k.startswith("affine") else "point_add.cu")
-          for k in REPLACES}
+SOURCE = {k: "masp_tpu_torch/csrc/" + src for k, src in (
+    ("mont_mul_fr", "mont_mul.cu"), ("mont_mul_fq", "mont_mul.cu"),
+    ("g1_add", "point_add.cu"), ("g2_add", "point_add.cu"),
+    ("g1_add01", "point_add.cu"), ("g2_add01", "point_add.cu"),
+    ("affine_pre", "affine.cu"), ("affine_post", "affine.cu"),
+    ("int8_dot", "int8_dot.cu"), ("int8_dot_loop", "int8_dot.cu"),
+    ("mont_mul_mxu", "mont_mul_mxu.cu"))}
+# the kernels each driven path must launch: the proof path (affine
+# configuration) and the two tools
+TOOL_KERNELS = ["int8_dot", "int8_dot_loop", "mont_mul_mxu"]
+PROOF_KERNELS = [k for k in REPLACES if k not in TOOL_KERNELS]
 # lanes of the affine levels' kernel checks: level 0 of the h query (32
 # windows x 2^17 points / 2) and the composite level at 2^19 lanes
 AFFINE_LANES = 1 << 21
@@ -200,19 +216,38 @@ def oracle_proof(u, v, w, z, tau, alpha, beta, delta, r, s, n_inputs):
 # --- kernel phase ------------------------------------------------------------------
 
 def _median_ms(fn, runs: int) -> float:
+    """CUDA-event ms around one eager call of fn, median of ``runs`` after a
+    warm-up call: the host's launch included whenever the kernel is shorter
+    than it, and inputs that fit in L2 read from there."""
     import torch
 
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(runs):
-        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        e0.record()
-        fn()
-        e1.record()
-        torch.cuda.synchronize()
-        times.append(e0.elapsed_time(e1))
-    return float(np.median(times))
+    from masp_tpu_torch.tools.bench_kernel_micro import time_ms
+
+    return time_ms(fn, torch.device("cuda"), runs)[0]
+
+
+def _kernel_ms(fn, args, nbytes: int, launches: int = 10) -> float:
+    """Card time per call of fn(*args) with the launch cost taken out: the
+    calls captured in one CUDA graph, replayed between CUDA events (median
+    of 5 replays). Consecutive calls read different copies of args, enough
+    that a copy is read again only after twice the L2's bytes (``nbytes``
+    per call) have passed, so each call reads its inputs from HBM, as the
+    byte bound assumes; at least ``launches`` calls."""
+    import torch
+
+    from masp_tpu_torch.tools.bench_kernel_micro import graph_of, time_ms
+
+    copies = -(-2 * L2_BYTES // nbytes)
+    sets = [args] + [tuple(a.clone() for a in args) for _ in range(copies - 1)]
+    calls = max(launches, copies)
+    outs = [None] * copies  # each copy's output stays alive: distinct buffers
+
+    def run():
+        for i in range(calls):
+            outs[i % copies] = fn(*sets[i % copies])
+
+    ms, _, _ = time_ms(graph_of(run), torch.device("cuda"), 5)
+    return ms / calls
 
 
 def _chain_ms(add, x, y, steps: int = 20) -> float:
@@ -225,6 +260,19 @@ def _chain_ms(add, x, y, steps: int = 20) -> float:
             acc = add(acc, y)
 
     return _median_ms(run, 5) / steps
+
+
+def _imad_ms(imad: float) -> float:
+    return 1e3 * imad / IMAD_PER_S
+
+
+def _set_bound(r: dict) -> tuple[float, float]:
+    """r["bound_ms"] and r["bound_by"] from r["bytes"] (each input read and
+    each output written once) and r["ops_ms"]; returns both times."""
+    bytes_ms, ops_ms = 1e3 * r["bytes"] / HBM_BYTES_PER_S, r["ops_ms"]
+    r["bound_ms"] = max(bytes_ms, ops_ms)
+    r["bound_by"] = "bytes" if bytes_ms > ops_ms else "operations"
+    return bytes_ms, ops_ms
 
 
 def _check_equal(name, got, want):
@@ -302,12 +350,13 @@ def kernel_phase(params, dev, rng, card: str) -> dict:
         err = _check_equal(name, MK.mont_mul(spec, a, b), MK.mont_mul_plain(spec, a, b))
         ar, br = a[:1000 + 3], b[:1000 + 3]
         _check_equal(name + " (ragged)", MK.mont_mul(spec, ar, br), MK.mont_mul_plain(spec, ar, br))
-        w = W_[spec.name.lower()]
+        w, nbytes = W_[spec.name.lower()], 3 * n * spec.L * 4
         out[name] = {
             "n": n, "max_abs_err": err,
-            "ms": _median_ms(lambda: MK.mont_mul(spec, a, b), 10),
+            "ms": _kernel_ms(lambda x, y: MK.mont_mul(spec, x, y), (a, b), nbytes),
+            "eager_ms": _median_ms(lambda: MK.mont_mul(spec, a, b), 10),
             "plain_ms": _median_ms(lambda: MK.mont_mul_plain(spec, a, b), 3),
-            "imad": n * 2 * (2 * w * w + w), "bytes": 3 * n * spec.L * 4,
+            "ops_ms": _imad_ms(n * 2 * (2 * w * w + w)), "bytes": nbytes,
         }
     fq_imad = 2 * (2 * 144 + 12)
     for group, rows in ((1, params.h), (2, params.b_g2)):
@@ -326,11 +375,13 @@ def kernel_phase(params, dev, rng, card: str) -> dict:
             pairs = torch.cat([x, y], dim=1)
             _check_equal(name + " (strided)", PA.point_add(group, pairs[:, :K], pairs[:, K:], leaf),
                          PA.point_add_plain(group, x, y, leaf))
+            nbytes = 3 * n * K * 4
             out[name] = {
                 "n": n, "max_abs_err": err,
-                "ms": _median_ms(lambda: PA.point_add(group, x, y, leaf), 10),
+                "ms": _kernel_ms(lambda p, q: PA.point_add(group, p, q, leaf), (x, y), nbytes),
+                "eager_ms": _median_ms(lambda: PA.point_add(group, x, y, leaf), 10),
                 "plain_ms": _median_ms(lambda: PA.point_add_plain(group, x, y, leaf), 3),
-                "imad": n * per_mul * (9 if leaf else 12), "bytes": 3 * n * K * 4,
+                "ops_ms": _imad_ms(n * per_mul * (9 if leaf else 12)), "bytes": nbytes,
             }
             if not leaf:  # the widths of bucket_reduce_horner's chains
                 for width in (1, 32 if group == 2 else 4 * 32):
@@ -341,11 +392,10 @@ def kernel_phase(params, dev, rng, card: str) -> dict:
     for name, r in out.items():
         # bytes of the int32 rows the kernel reads and writes; each row holds
         # 16-bit limbs, so the limbs' own payload is half of that
-        bytes_ms, ops_ms = 1e3 * r["bytes"] / HBM_BYTES_PER_S, 1e3 * r["imad"] / IMAD_PER_S
-        r["bound_ms"] = max(bytes_ms, ops_ms)
-        r["bound_by"] = "bytes" if bytes_ms > ops_ms else "operations"
+        bytes_ms, ops_ms = _set_bound(r)
         log(f"kernel {name}: n={r['n']} bit-identical to plain (tolerance: exact; max_abs_err "
-            f"{r['max_abs_err']}); kernel {r['ms']:.4f} ms (median of 10), plain {r['plain_ms']:.3f} ms "
+            f"{r['max_abs_err']}); kernel {r['ms']:.4f} ms per launch in a CUDA graph, inputs from HBM "
+            f"({r['eager_ms']:.4f} ms eager, events around one call, median of 10), plain {r['plain_ms']:.3f} ms "
             f"(median of 3), bound {r['bound_ms']:.4f} ms ({r['bound_by']}; bytes {bytes_ms:.4f} ms "
             f"for int32 rows, {bytes_ms / 2:.4f} ms for the 16-bit payload; operations {ops_ms:.4f} ms) "
             f"on {card}")
@@ -448,22 +498,141 @@ def affine_kernel_phase(params, dev, card: str) -> dict:
         ms = _median_ms(lambda: MS._root_inv(fops, root), 3)
         log(f"root inverse of one affine level, G{fops.GROUP}: {launches} dependent mont_mul_fq "
             f"launches, {ms:.3f} ms (median of 3) on {card}")
+    # one Fq product; rows 2 x 49 in, n and d (24 each) and the code out
+    pre_bytes = n * 4 * (2 * 49 + 2 * 24 + 1)
+    # three Fq products; n, inv, 2 rows and the code in, one row out
+    post_bytes = n * 4 * (2 * 24 + 2 * 49 + 1 + 49)
     return {
         "affine_pre": {
             "n": n, "max_abs_err": err,
-            "ms": _median_ms(lambda: AK.affine_pre(S1, S2), 10),
+            "ms": _kernel_ms(AK.affine_pre, (S1, S2), pre_bytes),
+            "eager_ms": _median_ms(lambda: AK.affine_pre(S1, S2), 10),
             "plain_ms": _median_ms(lambda: _chunked(AK.affine_pre_plain, n, P1, P2), 3),
-            # one Fq product; rows 2 x 49 in, n and d (24 each) and the code out
-            "imad": n * 2 * (2 * 144 + 12), "bytes": n * 4 * (2 * 49 + 2 * 24 + 1),
+            "ops_ms": _imad_ms(n * 2 * (2 * 144 + 12)), "bytes": pre_bytes,
         },
         "affine_post": {
             "n": n, "max_abs_err": post_err,
-            "ms": _median_ms(lambda: AK.affine_post(nn, inv, S1, S2, code), 10),
+            "ms": _kernel_ms(AK.affine_post, (nn, inv, S1, S2, code), post_bytes),
+            "eager_ms": _median_ms(lambda: AK.affine_post(nn, inv, S1, S2, code), 10),
             "plain_ms": _median_ms(lambda: _chunked(AK.affine_post_plain, n, nn, inv, P1, P2, code), 3),
-            # three Fq products; n, inv, 2 rows and the code in, one row out
-            "imad": n * 3 * 2 * (2 * 144 + 12), "bytes": n * 4 * (2 * 24 + 2 * 49 + 1 + 49),
+            "ops_ms": _imad_ms(n * 3 * 2 * (2 * 144 + 12)), "bytes": post_bytes,
         },
     }
+
+
+def _int_mm_ms(x, w, want, nbytes):
+    """torch._int_mm's time at the shape, timed as the kernels are (in a
+    CUDA graph), the int8 kernels' yardstick (the port never calls it):
+    (ms, None), or (None, why) when it refuses."""
+    import torch
+
+    try:
+        got = torch._int_mm(x, w)
+    except RuntimeError as e:
+        return None, f"torch._int_mm refused {tuple(x.shape)} @ {tuple(w.shape)}: {e}".splitlines()[0]
+    _check_equal("torch._int_mm (yardstick)", got, want)
+    return _kernel_ms(torch._int_mm, (x, w), nbytes), None
+
+
+def tools_phase(dev, rng, card) -> dict:
+    """The tools' kernels against their plain versions, bit for bit (the
+    tolerance is exact equality): int8_dot at the tools' (1024, 48) @ (48,
+    96), on the full signed range and at a ragged (1003, 40) @ (40, 90);
+    int8_dot_loop at k = 8 and 64; mont_mul_mxu against its plain version,
+    mont_mul and mont_mul_plain at 2^17 reduced Fq rows with edge lanes and
+    at 1003 rows. Then both tools' main at full size, with the launch counts
+    zeroed just before and read just after: each of the three kernels must
+    have launched there."""
+    import torch
+
+    from masp_tpu_torch.kernels import LAUNCHES, reset_launches
+    from masp_tpu_torch.kernels import int8_dot as I8, mont_mul as MK, mont_mul_mxu as MX
+    from masp_tpu_torch.ops.field import FQ
+    from masp_tpu_torch.tools import bench_kernel_micro, exp_mxu_mont
+
+    nrng = np.random.default_rng(rng.randrange(1 << 30))
+    M, K, N = bench_kernel_micro.DOT_SHAPE
+    x = torch.as_tensor(nrng.integers(0, 127, (M, K), dtype=np.int8), device=dev)
+    w = torch.as_tensor(nrng.integers(0, 127, (K, N), dtype=np.int8), device=dev)
+    xs_np = nrng.integers(-128, 128, (M, K), dtype=np.int8)
+    ws_np = nrng.integers(-128, 128, (K, N), dtype=np.int8)
+    xs_np[0], ws_np[:, 0], xs_np[1], ws_np[:, 1] = -128, -128, 127, 127  # the range's ends meet
+    xs, ws = torch.as_tensor(xs_np, device=dev), torch.as_tensor(ws_np, device=dev)
+    plain = I8.int8_dot_plain(x, w)
+    err = _check_equal("int8_dot", I8.int8_dot(x, w), plain)
+    _check_equal("int8_dot (signed range)", I8.int8_dot(xs, ws), I8.int8_dot_plain(xs, ws))
+    xr, wr = xs[:1003, :40].contiguous(), ws[:40, :90].contiguous()
+    _check_equal("int8_dot (ragged 1003 x 40 x 90)", I8.int8_dot(xr, wr), I8.int8_dot_plain(xr, wr))
+    loop_err = 0.0
+    for k in (8, 64):
+        loop_err = max(loop_err, _check_equal(f"int8_dot_loop k={k}", I8.int8_dot_loop(x, w, k),
+                                              I8.int8_dot_loop_plain(x, w, k)))
+        _check_equal(f"int8_dot_loop k={k} (signed range)", I8.int8_dot_loop(xs, ws, k),
+                     I8.int8_dot_loop_plain(xs, ws, k))
+        _check_equal(f"int8_dot_loop k={k} (ragged)", I8.int8_dot_loop(xr, wr, k), I8.int8_dot_loop_plain(xr, wr, k))
+    n = 1 << 17
+    a, b = _field_inputs(FQ, n, rng, dev)
+    mxu = MX.mont_mul_mxu(FQ, a, b)
+    mxu_err = _check_equal("mont_mul_mxu", mxu, MX.mont_mul_mxu_plain(FQ, a, b))
+    _check_equal("mont_mul_mxu vs mont_mul (kernel)", mxu, MK.mont_mul(FQ, a, b))
+    _check_equal("mont_mul_mxu vs mont_mul_plain", mxu, MK.mont_mul_plain(FQ, a, b))
+    ar, br = a[:1003], b[:1003]
+    _check_equal("mont_mul_mxu (ragged)", MX.mont_mul_mxu(FQ, ar, br), MX.mont_mul_mxu_plain(FQ, ar, br))
+    _check_equal("mont_mul_mxu (ragged) vs mont_mul", MX.mont_mul_mxu(FQ, ar, br), MK.mont_mul(FQ, ar, br))
+
+    dot_bytes, mxu_bytes = M * K + K * N + 4 * M * N, 3 * n * FQ.L * 4
+    lib_ms, why = _int_mm_ms(x, w, plain, dot_bytes)
+    out = {
+        "int8_dot": {
+            "n": M, "max_abs_err": err, "library_ms": lib_ms,
+            "ms": _kernel_ms(I8.int8_dot, (x, w), dot_bytes),
+            "eager_ms": _median_ms(lambda: I8.int8_dot(x, w), 10),
+            "plain_ms": _median_ms(lambda: I8.int8_dot_plain(x, w), 3),
+            "ops_ms": 1e3 * M * K * N / INT8_MAC_PER_S, "bytes": dot_bytes,
+        },
+        "int8_dot_loop": {
+            "n": M, "max_abs_err": loop_err, "library_ms": None,
+            "ms": _kernel_ms(lambda p, q: I8.int8_dot_loop(p, q, 64), (x, w), dot_bytes),
+            "eager_ms": _median_ms(lambda: I8.int8_dot_loop(x, w, 64), 10),
+            "plain_ms": _median_ms(lambda: I8.int8_dot_loop_plain(x, w, 64), 3),
+            "ops_ms": 1e3 * 64 * M * K * N / INT8_MAC_PER_S, "bytes": dot_bytes,
+        },
+        "mont_mul_mxu": {
+            "n": n, "max_abs_err": mxu_err, "library_ms": None,
+            "ms": _kernel_ms(lambda p, q: MX.mont_mul_mxu(FQ, p, q), (a, b), mxu_bytes),
+            "eager_ms": _median_ms(lambda: MX.mont_mul_mxu(FQ, a, b), 10),
+            "plain_ms": _median_ms(lambda: MX.mont_mul_mxu_plain(FQ, a, b), 3),
+            # the product phase's 2 W^2 IMADs (W = 12); the reductions run on the tensor cores
+            "ops_ms": _imad_ms(n * 2 * 144), "bytes": mxu_bytes,
+        },
+    }
+    for name, r in out.items():
+        bytes_ms, ops_ms = _set_bound(r)
+        lib = f"{r['library_ms']:.4f} ms" if r["library_ms"] is not None else "none"
+        log(f"kernel {name}: n={r['n']} bit-identical to plain (tolerance: exact; max_abs_err {r['max_abs_err']}); "
+            f"kernel {r['ms']:.4f} ms per launch in a CUDA graph, inputs from HBM ({r['eager_ms']:.4f} ms "
+            f"eager, median of 10), "
+            f"plain {r['plain_ms']:.3f} ms (median of 3), library {lib}, "
+            f"bound {r['bound_ms']:.6f} ms ({r['bound_by']}; bytes {bytes_ms:.6f} ms, operations {ops_ms:.6f} ms "
+            f"at the data sheet's {'1,979 int8 TOPS' if name.startswith('int8') else 'INT32 IMAD rate'}) on {card}")
+    if why:
+        log(f"kernel int8_dot: library_ms null: {why}")
+    log(f"kernel mont_mul_fq at the same {n} rows: "
+        f"{_kernel_ms(lambda p, q: MK.mont_mul(FQ, p, q), (a, b), mxu_bytes):.4f} ms per "
+        f"launch in a CUDA graph on {card}")
+
+    reset_launches()
+    t0 = time.perf_counter()
+    bench_kernel_micro.main("cuda", log=lambda m: log(f"[bench_kernel_micro] {m}"))
+    exp_mxu_mont.main("cuda", log=lambda m: log(f"[exp_mxu_mont] {m}"))
+    launches = dict(LAUNCHES)
+    log(f"[tools] both tools at full size in {time.perf_counter() - t0:.1f} s; launches that ran eagerly "
+        f"(graph captures and replays not counted): {json.dumps({k: launches[k] for k in TOOL_KERNELS})}")
+    for name in TOOL_KERNELS:
+        if launches[name] <= 0:
+            raise AssertionError(f"[tools] kernel {name} was not launched by the tools")
+        out[name]["launches"] = launches[name]
+    return out
 
 
 def prove_phase(label, asm, params, rs, check, card, dev, must_launch):
@@ -581,6 +750,7 @@ def main(argv) -> int:
         f"(h {len(params.h)}, l {len(params.l)}, a {len(params.a)}, b {len(params.b_g1)})")
 
     kern = kernel_phase(params, dev, rng, card)
+    tools = tools_phase(dev, rng, card)
     if "--kernels" in argv:
         return 0
 
@@ -596,9 +766,9 @@ def main(argv) -> int:
             raise AssertionError("a proof differs from the toxic-waste oracle")
 
     # the main path: the default configuration, the batch-affine MSM ladder
-    _, launches = prove_phase("affine", asm, params, rs, check, card, dev, list(REPLACES))
+    _, launches = prove_phase("affine", asm, params, rs, check, card, dev, PROOF_KERNELS)
     # the projective scan ladder with the sequential reduction
-    scan_kernels = [k for k in REPLACES if not k.startswith("affine")]
+    scan_kernels = [k for k in PROOF_KERNELS if not k.startswith("affine")]
     default, MS.AFFINE_LADDER = MS.AFFINE_LADDER, False
     try:
         _, scan_launches = prove_phase("scan", asm, params, rs, check, card, dev, scan_kernels)
@@ -614,11 +784,15 @@ def main(argv) -> int:
         finally:
             MS.AFFINE_LADDER = default
 
+    # launches: the proof kernels' from the affine proofs, the tool kernels'
+    # from the tools' run. "ms" is per launch inside a CUDA graph with inputs
+    # from HBM; "eager_ms" is CUDA events around one eager call, the host's
+    # launch included
     line = {"kernels": [{
         "name": name, "route": "cuda", "source": SOURCE[name], "replaces": REPLACES[name],
-        "launches": launches[name], "max_abs_err": k["max_abs_err"], "ms": k["ms"],
-        "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
-        "library_ms": None} for name, k in kern.items()]}
+        "launches": k.get("launches", launches[name]), "max_abs_err": k["max_abs_err"], "ms": k["ms"],
+        "eager_ms": k["eager_ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
+        "bound_by": k["bound_by"], "library_ms": k.get("library_ms")} for name, k in {**kern, **tools}.items()]}
     print(json.dumps(line))
     print(card)
     # the run used one card, whatever the machine holds

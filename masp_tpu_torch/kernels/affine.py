@@ -27,7 +27,7 @@ import functools
 
 import torch
 
-from masp_tpu_torch.kernels import LAUNCHES
+from masp_tpu_torch.kernels import count_launch
 from masp_tpu_torch.kernels import mont_mul as MK
 from masp_tpu_torch.kernels.build import library
 from masp_tpu_torch.ops import field as F
@@ -139,7 +139,7 @@ def _launch(name, p1, p2, before, after):
                           p1.shape[0], stream)
     if err != 0:
         raise RuntimeError(f"affine_{name} kernel launch failed: CUDA error {err}")
-    LAUNCHES[f"affine_{name}"] += 1
+    count_launch(f"affine_{name}")
 
 
 def affine_pre(p1, p2):

@@ -20,9 +20,10 @@ import numpy as np
 import torch
 
 from masp_tpu_torch import device_const as _const
-from masp_tpu_torch.kernels import LAUNCHES
+from masp_tpu_torch.kernels import count_launch
 from masp_tpu_torch.kernels.build import library
-from masp_tpu_torch.ops.limbs import ints_to_limbs, limbs_to_ints, normalize, reduce_once
+from masp_tpu_torch.ops.limbs import exact_matmul, ints_to_limbs, limbs_to_ints, normalize, reduce_once
+
 
 def _spread(L: int, device) -> torch.Tensor:
     """(L*L, 2L) 0/1 float64: product (i, j) -> column i + j."""
@@ -42,12 +43,6 @@ def _toeplitz(limbs, width: int, device) -> torch.Tensor:
         k = min(L, width - i)
         T[i, i : i + k] = c[:k]
     return T
-
-
-def _cols(x, M):
-    """Column sums x @ M of 16-bit limb products. Every partial sum is an
-    integer below 2^53, so the float64 product is exact."""
-    return (x.to(torch.float64) @ M).to(torch.int64)
 
 
 def _redc_ints(spec, a, b):
@@ -88,12 +83,12 @@ def mont_mul_plain(spec, a, b):
     spread = _const(("S", L, dev), lambda: _spread(L, dev))
     t_np = _const(("Np", spec.name, dev), lambda: _toeplitz(spec.N_PRIME, L, dev))
     t_n = _const(("N", spec.name, dev), lambda: _toeplitz(spec.N, 2 * L, dev))
-    T, _ = normalize(_cols((a[:, :, None] * b[:, None, :]).reshape(n, L * L), spread))
+    T, _ = normalize(exact_matmul((a[:, :, None] * b[:, None, :]).reshape(n, L * L), spread))
     # m = T * (-N^-1) mod R: the low L columns of the product
-    m, _ = normalize(_cols(T[:, :L], t_np))
+    m, _ = normalize(exact_matmul(T[:, :L], t_np))
     # (T + m N) / R: the low L limbs cancel; the high L limbs and the carry
     # are the product before the final subtraction
-    U, carry = normalize(_cols(m, t_n) + T)
+    U, carry = normalize(exact_matmul(m, t_n) + T)
     return reduce_once(spec.const("N", dev), U[:, L:], carry).to(torch.int32)
 
 
@@ -131,7 +126,7 @@ def mont_mul(spec, a, b):
         err = _c_fn(spec.name)(a.data_ptr(), b.data_ptr(), out.data_ptr(), n, stream)
     if err != 0:
         raise RuntimeError(f"mont_mul kernel launch failed: CUDA error {err}")
-    LAUNCHES["mont_mul_" + spec.name.lower()] += 1
+    count_launch("mont_mul_" + spec.name.lower())
     return out
 
 

@@ -22,7 +22,7 @@ import functools
 
 import torch
 
-from masp_tpu_torch.kernels import LAUNCHES
+from masp_tpu_torch.kernels import count_launch
 from masp_tpu_torch.kernels import mont_mul as MK
 from masp_tpu_torch.kernels.build import library
 from masp_tpu_torch.ops.field import FQ
@@ -92,7 +92,7 @@ def point_add(group: int, p, q, leaf01: bool = False):
                       q.stride(0), out.data_ptr(), n, stream)
     if err != 0:
         raise RuntimeError(f"point_add kernel launch failed: CUDA error {err}")
-    LAUNCHES[f"g{group}_add01" if leaf01 else f"g{group}_add"] += 1
+    count_launch(f"g{group}_add01" if leaf01 else f"g{group}_add")
     return out
 
 

@@ -108,6 +108,13 @@ def add_limbs(a, b):
     return (s + cin) & LIMB_MASK, cout
 
 
+def exact_matmul(x, w):
+    """x @ w as int64 for integer tensors whose partial sums are all
+    integers below 2^53: one float64 matrix product, exact there (PyTorch
+    has no integer matrix product on the card)."""
+    return (x.to(torch.float64) @ w.to(torch.float64)).to(torch.int64)
+
+
 def reduce_once(Nl, t, carry):
     """Canonical limbs t (n, L) int64 plus a carry out; subtract the modulus
     Nl (L,) once when the value is >= it (the JAX package's
@@ -119,4 +126,4 @@ def reduce_once(Nl, t, carry):
 
 __all__ = ["LIMB_BITS", "LIMB_MASK", "int_to_limbs", "limbs_to_int",
            "ints_to_limbs", "limbs_to_ints", "normalize", "sub_limbs",
-           "add_limbs", "reduce_once"]
+           "add_limbs", "exact_matmul", "reduce_once"]

@@ -249,6 +249,15 @@ AFFINE_LADDER = True
 AFFINE_LEVELS = 4
 
 
+def affine_ladder_takes(n_windows: int, n_points: int) -> bool:
+    """Whether the batch-affine ladder can run an MSM of this shape: its
+    levels invert all windows' lanes with one product tree, so the lane
+    count must be a power of two (c = 10, 12 or 13 give 26, 22 or 20
+    windows, which it cannot take)."""
+    lanes = n_windows * n_points
+    return lanes & (lanes - 1) == 0
+
+
 def _affine_on(fops) -> bool:
     """The affine ladder (and the wide reduction it pairs with) for the
     Weierstrass groups G1 and G2 while AFFINE_LADDER is set: the JAX
@@ -369,8 +378,7 @@ def window_buckets_flat(fops, points_packed, digits, c: int):
     n_windows = digits.shape[1]
     levels = _levels(N)
     K = max(0, min(AFFINE_LEVELS, levels))
-    lanes = n_windows * N
-    if K and lanes & (lanes - 1):
+    if K and not affine_ladder_takes(n_windows, N):
         raise ValueError(
             f"the batch-affine ladder needs a power-of-two lane count, got {n_windows} windows x "
             f"{N} points (c = {c}): choose c with a power-of-two window count or set AFFINE_LADDER = False")
@@ -399,5 +407,5 @@ def window_buckets_flat(fops, points_packed, digits, c: int):
 __all__ = [
     "n_windows_for", "windows_from_limbs", "window_buckets", "window_buckets_flat",
     "bucket_reduce_horner", "sorted_msm", "sorted_msm_from_limbs",
-    "masked_sum", "AFFINE_LADDER", "AFFINE_LEVELS",
+    "masked_sum", "affine_ladder_takes", "AFFINE_LADDER", "AFFINE_LEVELS",
 ]
