@@ -63,6 +63,8 @@ L2_BYTES = 50 * 2**20  # the H100 SXM's L2 cache
 REPLACES = {
     "mont_mul_fr": "masp_tpu/kernels/field_kernels.py:350",
     "mont_mul_fq": "masp_tpu/kernels/field_kernels.py:350",
+    # the Fermat chain of :350 launches that field_jax.mont_inv_small runs
+    "mont_inv_fq": "masp_tpu/ops/field_jax.py:233",
     "g1_add": "masp_tpu/kernels/field_kernels.py:356",
     "g2_add": "masp_tpu/kernels/field_kernels.py:425",
     "g1_add01": "masp_tpu/kernels/field_kernels.py:372",
@@ -74,7 +76,7 @@ REPLACES = {
     "mont_mul_mxu": "tools/exp_mxu_mont.py:191",
 }
 SOURCE = {k: "masp_tpu_torch/csrc/" + src for k, src in (
-    ("mont_mul_fr", "mont_mul.cu"), ("mont_mul_fq", "mont_mul.cu"),
+    ("mont_mul_fr", "mont_mul.cu"), ("mont_mul_fq", "mont_mul.cu"), ("mont_inv_fq", "mont_mul.cu"),
     ("g1_add", "point_add.cu"), ("g2_add", "point_add.cu"),
     ("g1_add01", "point_add.cu"), ("g2_add01", "point_add.cu"),
     ("affine_pre", "affine.cu"), ("affine_post", "affine.cu"),
@@ -226,18 +228,20 @@ def _median_ms(fn, runs: int) -> float:
     return time_ms(fn, torch.device("cuda"), runs)[0]
 
 
-def _kernel_ms(fn, args, nbytes: int, launches: int = 10) -> float:
+def _kernel_ms(fn, args, nbytes: int, launches: int = 10, from_hbm: bool = True) -> float:
     """Card time per call of fn(*args) with the launch cost taken out: the
     calls captured in one CUDA graph, replayed between CUDA events (median
-    of 5 replays). Consecutive calls read different copies of args, enough
-    that a copy is read again only after twice the L2's bytes (``nbytes``
-    per call) have passed, so each call reads its inputs from HBM, as the
-    byte bound assumes; at least ``launches`` calls."""
+    of 5 replays). With ``from_hbm``, consecutive calls read different
+    copies of args, enough that a copy is read again only after twice the
+    L2's bytes (``nbytes`` per call) have passed, so each call reads its
+    inputs from HBM, as the byte bound assumes; at least ``launches``
+    calls. Without it (a latency-bound kernel on a few rows) every call
+    reads the same args."""
     import torch
 
     from masp_tpu_torch.tools.bench_kernel_micro import graph_of, time_ms
 
-    copies = -(-2 * L2_BYTES // nbytes)
+    copies = -(-2 * L2_BYTES // nbytes) if from_hbm else 1
     sets = [args] + [tuple(a.clone() for a in args) for _ in range(copies - 1)]
     calls = max(launches, copies)
     outs = [None] * copies  # each copy's output stays alive: distinct buffers
@@ -250,16 +254,22 @@ def _kernel_ms(fn, args, nbytes: int, launches: int = 10) -> float:
     return ms / calls
 
 
-def _chain_ms(add, x, y, steps: int = 20) -> float:
-    """Card time per launch of ``steps`` dependent adds acc = add(acc, y),
-    as the bucket reduction chains run them (median of 5)."""
+def _chain_ms(add, x, y, steps: int = 20) -> tuple[float, float]:
+    """ms per launch of ``steps`` dependent adds acc = add(acc, y), as the
+    bucket reduction chains run them: (eager, events around the chain, the
+    host's launches included; in one CUDA graph, the card's time alone),
+    medians of 5."""
+    import torch
+
+    from masp_tpu_torch.tools.bench_kernel_micro import graph_of, time_ms
 
     def run():
         acc = x
         for _ in range(steps):
             acc = add(acc, y)
 
-    return _median_ms(run, 5) / steps
+    graph = time_ms(graph_of(run), torch.device("cuda"), 5)[0]
+    return _median_ms(run, 5) / steps, graph / steps
 
 
 def _imad_ms(imad: float) -> float:
@@ -358,6 +368,7 @@ def kernel_phase(params, dev, rng, card: str) -> dict:
             "plain_ms": _median_ms(lambda: MK.mont_mul_plain(spec, a, b), 3),
             "ops_ms": _imad_ms(n * 2 * (2 * w * w + w)), "bytes": nbytes,
         }
+    out["mont_inv_fq"] = inverse_kernel_phase(dev, rng, card)
     fq_imad = 2 * (2 * 144 + 12)
     for group, rows in ((1, params.h), (2, params.b_g2)):
         n = 1 << 16
@@ -366,40 +377,81 @@ def kernel_phase(params, dev, rng, card: str) -> dict:
         per_mul = fq_imad * (1 if group == 1 else 3)
         for leaf, (x, y) in ((True, (P, Q)), (False, (Pp, Qp))):
             name = f"g{group}_add01" if leaf else f"g{group}_add"
-            err = _check_equal(name, PA.point_add(group, x, y, leaf), PA.point_add_plain(group, x, y, leaf))
-            if leaf:  # the leaf form gives the complete formula's limbs
-                _check_equal(name + " vs complete", PA.point_add(group, x, y, True), PA.point_add(group, x, y, False))
-            xr, yr = x[:1000 + 3], y[:1000 + 3]
-            _check_equal(name + " (ragged)", PA.point_add(group, xr, yr, leaf), PA.point_add_plain(group, xr, yr, leaf))
-            # strided operands, as the MSM ladder passes them
-            pairs = torch.cat([x, y], dim=1)
-            _check_equal(name + " (strided)", PA.point_add(group, pairs[:, :K], pairs[:, K:], leaf),
-                         PA.point_add_plain(group, x, y, leaf))
+            pairs = torch.cat([x, y], dim=1)  # strided operands, as the MSM ladder passes them
+            want = PA.point_add_plain(group, x, y, leaf)
             nbytes = 3 * n * K * 4
+
+            def add(p, q, leaf=leaf):
+                return PA.point_add(group, p, q, leaf)
+
+            err = _check_equal(name, add(x, y), want)
+            if leaf:  # the leaf form gives the complete formula's limbs
+                _check_equal(name + " vs complete", add(x, y), PA.point_add(group, x, y, False))
+            _check_equal(name + " (strided)", add(pairs[:, :K], pairs[:, K:]), want)
+            for width in (1, 3, 32, 1003):  # the chains' widths and ragged counts, the edge lanes first
+                _check_equal(f"{name} (width {width})", add(x[:width], y[:width]), want[:width])
+                _check_equal(f"{name} (width {width}, strided)",
+                             add(pairs[:width, :K], pairs[:width, K:]), want[:width])
             out[name] = {
                 "n": n, "max_abs_err": err,
-                "ms": _kernel_ms(lambda p, q: PA.point_add(group, p, q, leaf), (x, y), nbytes),
-                "eager_ms": _median_ms(lambda: PA.point_add(group, x, y, leaf), 10),
-                "plain_ms": _median_ms(lambda: PA.point_add_plain(group, x, y, leaf), 3),
+                "ms": _kernel_ms(add, (x, y), nbytes),
+                "eager_ms": _median_ms(lambda: add(x, y), 10),
                 "ops_ms": _imad_ms(n * per_mul * (9 if leaf else 12)), "bytes": nbytes,
             }
             if not leaf:  # the widths of bucket_reduce_horner's chains
                 for width in (1, 32 if group == 2 else 4 * 32):
-                    ms = _chain_ms(lambda p, q: PA.point_add(group, p, q), x[:width], y[:width])
-                    log(f"kernel {name} chain: {ms:.4f} ms per launch at width {width} "
-                        f"(20 dependent launches, median of 5) on {card}")
+                    eager, graph = _chain_ms(add, x[:width], y[:width])
+                    log(f"kernel {name} chain: {eager:.4f} ms per launch eager, {graph:.4f} ms in a CUDA graph "
+                        f"at width {width} (20 dependent launches, median of 5) on {card}")
+            out[name]["plain_ms"] = _median_ms(lambda: PA.point_add_plain(group, x, y, leaf), 3)
     out.update(affine_kernel_phase(params, dev, card))
     for name, r in out.items():
         # bytes of the int32 rows the kernel reads and writes; each row holds
         # 16-bit limbs, so the limbs' own payload is half of that
         bytes_ms, ops_ms = _set_bound(r)
         log(f"kernel {name}: n={r['n']} bit-identical to plain (tolerance: exact; max_abs_err "
-            f"{r['max_abs_err']}); kernel {r['ms']:.4f} ms per launch in a CUDA graph, inputs from HBM "
+            f"{r['max_abs_err']}); kernel {r['ms']:.4f} ms per launch in a CUDA graph, {r.get('inputs', 'inputs from HBM')} "
             f"({r['eager_ms']:.4f} ms eager, events around one call, median of 10), plain {r['plain_ms']:.3f} ms "
-            f"(median of 3), bound {r['bound_ms']:.4f} ms ({r['bound_by']}; bytes {bytes_ms:.4f} ms "
-            f"for int32 rows, {bytes_ms / 2:.4f} ms for the 16-bit payload; operations {ops_ms:.4f} ms) "
+            f"(median of 3), bound {r['bound_ms']:.6f} ms ({r['bound_by']}; bytes {bytes_ms:.4f} ms "
+            f"for int32 rows, {bytes_ms / 2:.4f} ms for the 16-bit payload; operations {ops_ms:.6f} ms) "
             f"on {card}")
     return out
+
+
+def inverse_kernel_phase(dev, rng, card: str) -> dict:
+    """mont_inv_fq bit for bit against its plain chain at 1, 2 and 1003 rows
+    (0, 1, q - 1, 2, q - 2, the raw 1 and mont-1 among the first rows), and
+    its time at the proof path's width, one row, beside the 489-launch eager
+    chain of mont_mul_fq launches that it replaces."""
+    from masp_tpu_torch.kernels import mont_mul as MK
+    from masp_tpu_torch.ops import field as F
+    from masp_tpu_torch.ops.field import FQ
+
+    a, _ = _field_inputs(FQ, 1003, rng, dev)
+    err = 0.0
+    for n in (1, 2, 1003):
+        err = max(err, _check_equal(f"mont_inv_fq ({n} rows)", MK.mont_inv(FQ, a[:n]), MK.mont_inv_plain(FQ, a[:n])))
+    row = a[3:4]  # the Montgomery form of 2
+    chain = 14 + 5 * (len(FQ.inv_exp_nibbles) - 1)  # the table, then 4 + 1 per lower nibble: 489
+    w = FQ.L // 2
+
+    def old_chain():
+        return MK.fermat_chain(FQ, row, lambda x, y: F.mont_mul(FQ, x, y))
+
+    _check_equal("mont_inv_fq vs the mont_mul_fq chain", MK.mont_inv(FQ, row), old_chain())
+    r = {
+        "n": 1, "max_abs_err": err,
+        "ms": _kernel_ms(lambda x: MK.mont_inv(FQ, x), (row,), 2 * FQ.L * 4, launches=20, from_hbm=False),
+        "eager_ms": _median_ms(lambda: MK.mont_inv(FQ, row), 10),
+        "plain_ms": _median_ms(lambda: MK.mont_inv_plain(FQ, row), 3),
+        "ops_ms": _imad_ms(chain * 2 * (2 * w * w + w)), "bytes": 2 * FQ.L * 4,
+        "inputs": "one row, latency-bound",
+    }
+    wide = _kernel_ms(lambda x: MK.mont_inv(FQ, x), (a,), 2 * 1003 * FQ.L * 4, launches=20, from_hbm=False)
+    log(f"kernel mont_inv_fq: {r['ms']:.4f} ms per launch in a CUDA graph at 1 row ({wide:.4f} ms at 1003 rows), "
+        f"{r['eager_ms']:.4f} ms eager; the {chain}-launch eager mont_mul_fq chain it replaces: "
+        f"{_median_ms(old_chain, 3):.3f} ms (median of 3) on {card}")
+    return r
 
 
 def _affine_inputs(rows_np, n, dev):
@@ -492,12 +544,12 @@ def affine_kernel_phase(params, dev, card: str) -> dict:
         f"(median of 3), {launches} mont_mul_fq launches on {card}")
     for fops in (W.G1Ops, W.G2Ops):
         root = torch.stack([P1[8:9, :24]] * (1 if fops is W.G1Ops else 2), dim=1).reshape((1,) + fops.coord_shape)
-        before = LAUNCHES["mont_mul_fq"]
+        before = dict(LAUNCHES)
         MS._root_inv(fops, root)
-        launches = LAUNCHES["mont_mul_fq"] - before
+        launches = {k: LAUNCHES[k] - before[k] for k in ("mont_mul_fq", "mont_inv_fq")}
         ms = _median_ms(lambda: MS._root_inv(fops, root), 3)
-        log(f"root inverse of one affine level, G{fops.GROUP}: {launches} dependent mont_mul_fq "
-            f"launches, {ms:.3f} ms (median of 3) on {card}")
+        log(f"root inverse of one affine level, G{fops.GROUP}: launches {json.dumps(launches)}, "
+            f"{ms:.3f} ms (median of 3) on {card}")
     # one Fq product; rows 2 x 49 in, n and d (24 each) and the code out
     pre_bytes = n * 4 * (2 * 49 + 2 * 24 + 1)
     # three Fq products; n, inv, 2 rows and the code in, one row out

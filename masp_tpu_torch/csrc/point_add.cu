@@ -1,14 +1,15 @@
 // Complete projective point addition on BLS12-381 G1 (over Fq) and G2 (over
 // Fq2 = Fq[u]/(u^2 + 1)): Renes-Costello-Batina 2015 Algorithm 7, a = 0,
-// b3 = 12 on G1 and 12(1 + u) on G2. One template covers the four Pallas
-// kernel bodies it replaces (masp_tpu/kernels/field_kernels.py, all behind
-// _g_add_callable): _g1_add_kernel, _g2_add_kernel, and the leaf forms
-// _g1_add01_kernel / _g2_add01_kernel, specialised to Z in {0, mont-1}
-// (9 field products instead of 12; the identity mask is Z's limb 0 != 0). The
+// b3 = 12 on G1 and 12(1 + u) on G2. Two kernels cover the four Pallas kernel
+// bodies they replace (masp_tpu/kernels/field_kernels.py, all behind
+// _g_add_callable): point_add_kernel, one thread per pair, for _g1_add_kernel
+// and the leaf forms _g1_add01_kernel / _g2_add01_kernel, specialised to Z in
+// {0, mont-1} (9 field products instead of 12; the identity mask is Z's limb
+// 0 != 0); g2_add_kernel, a group of threads per pair, for _g2_add_kernel. The
 // leaf form gives the complete formula's limbs exactly: with such Z,
 // (Y1+Z1)(Y2+Z2) - t1 - t2 = Y1 Z2 + Z1 Y2 is a masked select.
 //
-// Points are rows of 16-bit limbs, [X | Y | Z] with K = 24 limbs per
+// Points are rows of 16-bit limbs, [X | Y | Z], with K = 24 limbs per
 // coordinate on G1 and K = 48 (c0 then c1) on G2. Operand rows may be
 // strided (the MSM ladder pairs even and odd rows of one tensor in place);
 // output rows are contiguous. The plain PyTorch version is point_add_plain in
@@ -16,10 +17,13 @@
 //
 // Bound: integer multiply-add throughput: a G1 add is 12 Fq products (2 * 144
 // + 12 multiply-adds each), a G2 add 36, against 9 * 96 or 9 * 192 bytes of
-// rows. One thread per point pair keeps the whole formula in registers, as the
-// Pallas kernel keeps it in VMEM: no intermediate touches device memory, and
-// pairs are independent, so no thread waits on another. G2's operands alone
-// are 6 * 24 words; ptxas's spill report is kept with the build.
+// rows. point_add_kernel keeps the whole formula of a pair in one thread's
+// registers, as the Pallas kernel keeps it in VMEM: no intermediate touches
+// device memory, and pairs are independent, so no thread waits on another.
+// On G2 that is 6 * 24 words of operands alone: 255 registers and spills, and
+// a critical path of 36 dependent Fq products, which the narrow chains of the
+// bucket reduction pay in full. g2_add_kernel splits the pair instead (see
+// its section below).
 
 #include "field.cuh"
 
@@ -219,15 +223,226 @@ static int launch(const int32_t* p, long long ps, const int32_t* q, long long qs
   return (int)cudaGetLastError();
 }
 
+// --- G2 complete add, a group of threads per pair -----------------------------
+//
+// The twelve Fq2 products of Algorithm 7 fall into two layers of six
+// independent products, with linear steps before, between and after them:
+//   layer 1: P_j = (A_u + A_v)(B_u + B_v) over the operands' coordinates
+//            (G2_L1: X 0, Y 1, Z 2, 3 = zero);
+//   linear:  O_j = P_d + s * beta(P_a - P_b - P_c) (G2_LIN: index 6 = zero,
+//            s = +-1, beta = b3 when set): 3 t0, P1 -+ b3 P2, the three cross
+//            terms, b3 of the X-Z cross term;
+//   layer 2: Q_j = O_a * O_b (G2_L2);
+//   output:  coordinate i, coefficient c = Q_a + s Q_b (G2_OUT), j = 2 i + c.
+// kernels/point_add.py holds the same tables (a test checks that they agree)
+// and a test runs them on host ints against the host curve. Every step is a
+// fully reduced field operation, so the limbs equal point_add_kernel's.
+//
+// A pair gets a group of six threads; thread j of the group computes product,
+// operand or output j of every step, each Fq2 product by Karatsuba (3 Fq
+// products). Six won over three threads per pair at every width measured
+// (PERF.md). A step's work differs per thread only in the addresses and signs
+// it reads from the tables, so a warp never diverges on it. The block stages
+// its pairs' rows in shared memory with 16-byte loads, packed to 32-bit
+// words, and the steps exchange their Fq2 values there (24 words each), with
+// a barrier between steps; the output rows go back with 16-byte stores. A
+// thread holds two Fq2 operands and one product at a time instead of the
+// whole formula, and the critical path is 6 dependent Fq products instead of
+// 36.
+
+__constant__ int G2_L1[6][2] = {{0, 3}, {1, 3}, {2, 3}, {0, 1}, {1, 2}, {0, 2}};
+// d, s, beta, a, b, c
+__constant__ int G2_LIN[6][6] = {
+    {0, -1, 0, 6, 0, 0},  // t0 = 3 P0 = P0 - (0 - P0 - P0)
+    {1, -1, 1, 2, 6, 6},  // t1 = P1 - b3 P2
+    {1, 1, 1, 2, 6, 6},   // Z3 = P1 + b3 P2
+    {6, 1, 0, 3, 0, 1},   // t3 = P3 - P0 - P1
+    {6, 1, 0, 4, 1, 2},   // t4 = P4 - P1 - P2
+    {6, 1, 1, 5, 0, 2},   // Y3 = b3 (P5 - P0 - P2)
+};
+__constant__ int G2_L2[6][2] = {{4, 5}, {3, 1}, {5, 0}, {1, 2}, {0, 3}, {2, 4}};
+// a, b, s: X3 = Q1 - Q0, Y3 = Q3 + Q2, Z3 = Q5 + Q4
+__constant__ int G2_OUT[3][3] = {{1, 0, -1}, {3, 2, 1}, {5, 4, 1}};
+
+namespace g2 {
+constexpr int BLOCK = 96;        // threads per block
+constexpr int TPP = 6;           // threads per pair
+constexpr int PAIRS = BLOCK / TPP;
+constexpr int W = Fq::W;         // words per Fq
+constexpr int E = 2 * W;         // words per Fq2
+constexpr int CHUNKS = 3 * E / 2;  // 16-byte chunks per point row (36)
+// per pair: area A (the two operand points, then the O_j, then the output
+// point) and area B (the P_j, then the Q_j); odd stride against bank conflicts
+constexpr int AREA_B = 6 * E;
+constexpr int PAIR_WORDS = 12 * E + 1;
+}  // namespace g2
+
+__device__ __forceinline__ void lds(FqE& r, const uint32_t* s) {
+#pragma unroll
+  for (int j = 0; j < Fq::W; j++) r.w[j] = s[j];
+}
+
+__device__ __forceinline__ void sts(uint32_t* s, const FqE& a) {
+#pragma unroll
+  for (int j = 0; j < Fq::W; j++) s[j] = a.w[j];
+}
+
+// the Fq2 value at slot k of a staging area, zero when k == zero
+__device__ __forceinline__ void lds2(Fq2E& r, const uint32_t* s, int k, int zero) {
+  const uint32_t m = k == zero ? 0u : ~0u;
+  const uint32_t* e = s + (k == zero ? 0 : k) * g2::E;
+#pragma unroll
+  for (int j = 0; j < Fq::W; j++) {
+    r.c0.w[j] = e[j] & m;
+    r.c1.w[j] = e[Fq::W + j] & m;
+  }
+}
+
+__device__ __forceinline__ void sts2(uint32_t* s, const Fq2E& a) {
+  sts(s, a.c0);
+  sts(s + Fq::W, a.c1);
+}
+
+__device__ __forceinline__ void pick(FqE& r, const FqE& a, const FqE& b, bool m) {
+#pragma unroll
+  for (int j = 0; j < Fq::W; j++) r.w[j] = m ? a.w[j] : b.w[j];
+}
+
+// r = a + s b with s = +-1
+__device__ __forceinline__ void add_signed(FqE& r, const FqE& a, const FqE& b, int s) {
+  FqE x, y;
+  fe_add(x, a, b);
+  fe_sub(y, a, b);
+  pick(r, y, x, s < 0);
+}
+
+__device__ __forceinline__ void add_signed(Fq2E& r, const Fq2E& a, const Fq2E& b, int s) {
+  add_signed(r.c0, a.c0, b.c0, s);
+  add_signed(r.c1, a.c1, b.c1, s);
+}
+
+__global__ void __launch_bounds__(g2::BLOCK)
+g2_add_kernel(const int32_t* __restrict__ p, long long p_stride,
+              const int32_t* __restrict__ q, long long q_stride,
+              int32_t* __restrict__ out, long long n, int vec) {
+  constexpr int PAIRS = g2::PAIRS;
+  __shared__ uint32_t smem[PAIRS * g2::PAIR_WORDS];
+  const int tid = threadIdx.x;
+  const long long first = (long long)blockIdx.x * PAIRS;
+  const int mine = tid / g2::TPP;  // this thread's pair in the block
+  const int j = tid % g2::TPP;     // its product, operand or output
+  uint32_t* A = smem + mine * g2::PAIR_WORDS;
+  uint32_t* B = A + g2::AREA_B;
+
+  // stage both operand rows of every pair as 32-bit words (pairs past n: 0)
+  for (int c = tid; c < PAIRS * 2 * g2::CHUNKS; c += g2::BLOCK) {
+    const int pr = c / (2 * g2::CHUNKS);
+    const int which = (c / g2::CHUNKS) & 1;
+    const int k = c % g2::CHUNKS;
+    const long long row = first + pr;
+    int4 v = make_int4(0, 0, 0, 0);
+    if (row < n) {
+      const int32_t* src = (which ? q + row * q_stride : p + row * p_stride) + 4 * k;
+      if (vec) {
+        v = __ldg(reinterpret_cast<const int4*>(src));
+      } else {
+        v = make_int4(__ldg(src), __ldg(src + 1), __ldg(src + 2), __ldg(src + 3));
+      }
+    }
+    uint32_t* d = smem + pr * g2::PAIR_WORDS + which * (3 * g2::E) + 2 * k;
+    d[0] = (uint32_t)v.x | ((uint32_t)v.y << 16);
+    d[1] = (uint32_t)v.z | ((uint32_t)v.w << 16);
+  }
+  __syncthreads();
+
+  // layer 1: P_j = (A_u + A_v)(B_u + B_v) into area B
+  {
+    Fq2E x, y, u, v;
+    lds2(x, A, G2_L1[j][0], 3);
+    lds2(u, A, G2_L1[j][1], 3);
+    add(x, x, u);
+    lds2(y, A + 3 * g2::E, G2_L1[j][0], 3);
+    lds2(v, A + 3 * g2::E, G2_L1[j][1], 3);
+    add(y, y, v);
+    mul(u, x, y);
+    sts2(B + j * g2::E, u);
+  }
+  __syncthreads();
+
+  // linear: O_j = P_d + s beta(P_a - P_b - P_c) into area A
+  {
+    Fq2E x, y, z;
+    lds2(x, B, G2_LIN[j][3], 6);
+    lds2(y, B, G2_LIN[j][4], 6);
+    sub(x, x, y);
+    lds2(y, B, G2_LIN[j][5], 6);
+    sub(x, x, y);
+    b3(y, x);
+    const bool beta = G2_LIN[j][2] != 0;
+    pick(x.c0, y.c0, x.c0, beta);
+    pick(x.c1, y.c1, x.c1, beta);
+    lds2(z, B, G2_LIN[j][0], 6);
+    add_signed(y, z, x, G2_LIN[j][1]);
+    sts2(A + j * g2::E, y);
+  }
+  __syncthreads();
+
+  // layer 2: Q_j = O_a O_b into area B
+  {
+    Fq2E x, y, z;
+    lds2(x, A, G2_L2[j][0], 6);
+    lds2(y, A, G2_L2[j][1], 6);
+    mul(z, x, y);
+    sts2(B + j * g2::E, z);
+  }
+  __syncthreads();
+
+  // output coefficient j = 2 i + c: Q_a + s Q_b into area A, as a point row
+  {
+    const int i = j >> 1, c = (j & 1) * Fq::W;
+    FqE x, y, z;
+    lds(x, B + G2_OUT[i][0] * g2::E + c);
+    lds(y, B + G2_OUT[i][1] * g2::E + c);
+    add_signed(z, x, y, G2_OUT[i][2]);
+    sts(A + i * g2::E + c, z);
+  }
+  __syncthreads();
+
+  // write the output rows back, 16 bytes a thread
+  for (int c = tid; c < PAIRS * g2::CHUNKS; c += g2::BLOCK) {
+    const int pr = c / g2::CHUNKS;
+    const int k = c % g2::CHUNKS;
+    const long long row = first + pr;
+    if (row < n) {
+      const uint32_t* s = smem + pr * g2::PAIR_WORDS + 2 * k;
+      const int4 v = make_int4((int)(s[0] & 0xffffu), (int)(s[0] >> 16),
+                               (int)(s[1] & 0xffffu), (int)(s[1] >> 16));
+      *reinterpret_cast<int4*>(out + row * (3 * g2::E * 2) + 4 * k) = v;
+    }
+  }
+}
+
+static int launch_g2(const int32_t* p, long long ps, const int32_t* q, long long qs,
+                     int32_t* out, long long n, void* stream) {
+  constexpr int PAIRS = g2::PAIRS;
+  // 16-byte loads need 16-byte aligned rows
+  const int vec = ((uintptr_t)p % 16 == 0) && ((uintptr_t)q % 16 == 0) && (ps % 4 == 0) &&
+                  (qs % 4 == 0);
+  const long long blocks = (n + PAIRS - 1) / PAIRS;
+  g2_add_kernel<<<(unsigned)blocks, g2::BLOCK, 0, (cudaStream_t)stream>>>(
+      p, ps, q, qs, out, n, vec);
+  return (int)cudaGetLastError();
+}
+
 // group: 1 (G1) or 2 (G2); leaf01: operands have Z in {0, mont-1}
-extern "C" int masp_point_add(int group, int leaf01, const int32_t* p, long long p_stride,
-                              const int32_t* q, long long q_stride, int32_t* out,
-                              long long n, void* stream) {
+extern "C" int masp_point_add(int group, int leaf01, const int32_t* p,
+                              long long p_stride, const int32_t* q, long long q_stride,
+                              int32_t* out, long long n, void* stream) {
   if (group == 1)
     return leaf01 ? launch<FqE, 24, true>(p, p_stride, q, q_stride, out, n, stream)
                   : launch<FqE, 24, false>(p, p_stride, q, q_stride, out, n, stream);
-  if (group == 2)
-    return leaf01 ? launch<Fq2E, 48, true>(p, p_stride, q, q_stride, out, n, stream)
-                  : launch<Fq2E, 48, false>(p, p_stride, q, q_stride, out, n, stream);
+  if (group == 2 && leaf01)
+    return launch<Fq2E, 48, true>(p, p_stride, q, q_stride, out, n, stream);
+  if (group == 2) return launch_g2(p, p_stride, q, q_stride, out, n, stream);
   return (int)cudaErrorInvalidValue;
 }

@@ -15,6 +15,7 @@ import torch
 LAUNCHES = {
     "mont_mul_fr": 0,
     "mont_mul_fq": 0,
+    "mont_inv_fq": 0,
     "g1_add": 0,
     "g2_add": 0,
     "g1_add01": 0,

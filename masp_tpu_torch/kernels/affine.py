@@ -6,7 +6,8 @@ Replaces the Pallas kernels ``_affine_pre_kernel`` and
 ``affine_level`` is the counterpart of their composite
 ``klay_affine_level``: the pre kernel (case masks, slope numerator n and
 denominator d, case code), the product-tree inversion of every d through
-the Fq Montgomery kernel with one Fermat inversion of the root, and the
+the Fq Montgomery kernel with the root's Fermat inversion as one launch of
+the inversion kernel (kernels/mont_mul.mont_inv), and the
 post kernel (lam = n / d, x3, y3, pass-throughs, identity normalisation).
 The CUDA kernels are ``csrc/affine.cu``.
 
@@ -79,16 +80,21 @@ def affine_post_plain(n, inv, p1, p2, code):
     return torch.cat([xo, yo, fo.to(torch.int32)[:, None]], dim=1)
 
 
-def _level(pre, mul, post, p1, p2):
+def _level(pre, mul, root_inv, post, p1, p2):
     n, d, code = pre(p1, p2)
-    inv = F.tree_batch_inv(FQ, d, mul)
+    inv = F.tree_batch_inv(FQ, d, mul, root_inv)
     return post(n, inv, p1, p2, code)
+
+
+def _plain_inv(r):
+    return MK.mont_inv_plain(FQ, r)
 
 
 def affine_level_plain(p1, p2):
     """Plain version of ``affine_level``: the same steps over the plain
-    pre/post versions and the plain Montgomery product."""
-    return _level(affine_pre_plain, _plain_mul, affine_post_plain, p1, p2)
+    pre/post versions, the plain Montgomery product and the Fermat chain
+    over it."""
+    return _level(affine_pre_plain, _plain_mul, _plain_inv, affine_post_plain, p1, p2)
 
 
 # --- the CUDA kernels' wrappers --------------------------------------------------
@@ -173,12 +179,17 @@ def _kernel_mul(a, b):
     return F.mont_mul(FQ, a, b)
 
 
+def _kernel_inv(r):
+    return F.mont_inv_small(FQ, r)
+
+
 def affine_level(p1, p2):
     """P1 + P2 on two batches of (n, 49) affine rows, n a power of two: the
     pre kernel, the product-tree inversion through the Fq Montgomery kernel
-    (log2 n launches up, 2 log2 n down, ~490 for the root's Fermat chain),
-    the post kernel. On CPU tensors every step runs its plain version."""
-    return _level(affine_pre, _kernel_mul, affine_post, p1, p2)
+    (log2 n launches up, 2 log2 n down) with one inversion kernel launch on
+    the root, the post kernel. On CPU tensors every step runs its plain
+    version."""
+    return _level(affine_pre, _kernel_mul, _kernel_inv, affine_post, p1, p2)
 
 
 __all__ = ["affine_pre", "affine_post", "affine_level", "affine_pre_plain",

@@ -1,10 +1,14 @@
-"""Montgomery multiplication a*b*R^-1 mod N for Fr (L=16) and Fq (L=24).
+"""Montgomery multiplication a*b*R^-1 mod N for Fr (L=16) and Fq (L=24),
+and the Fq Fermat inversion a^(q-2) in one launch.
 
 Replaces the Pallas kernel ``_mont_mul_kernel`` of
-masp_tpu/kernels/field_kernels.py (called through ``pallas_mont_mul``).
-The CUDA kernel is ``csrc/mont_mul.cu`` (CIOS over 32-bit words);
-``mont_mul_plain`` below is its plain PyTorch version over int64-held 16-bit
-limbs. Both return the fully reduced product (< N), so their limbs equal the
+masp_tpu/kernels/field_kernels.py (called through ``pallas_mont_mul``), and
+the chain of its launches that masp_tpu/ops/field_jax.py ``mont_inv_small``
+runs. The CUDA kernels are ``csrc/mont_mul.cu`` (CIOS over 32-bit words);
+``mont_mul_plain`` below is the product's plain PyTorch version over
+int64-held 16-bit limbs, ``mont_inv_plain`` the inversion's (the 4-bit
+fixed-window chain over ``mont_mul_plain``). The product's kernel and plain
+version both return the fully reduced product (< N), so their limbs equal the
 JAX package's exactly whenever one operand is < N (always the case in the
 prover): the product before the final subtraction is the unique
 (ab + mN)/R with m = -ab/N mod R, whatever the limb width or the order in
@@ -92,7 +96,31 @@ def mont_mul_plain(spec, a, b):
     return reduce_once(spec.const("N", dev), U[:, L:], carry).to(torch.int32)
 
 
-# --- the CUDA kernel's wrapper ----------------------------------------------
+def fermat_chain(spec, a, mul):
+    """a^(N-2) in Montgomery form by 4-bit fixed windows over ``mul(x, y)``:
+    the table a^0 .. a^15 (14 products), then per lower nibble of N - 2 four
+    squarings and one table product (489 products for Fq). Bit-identical to
+    the bit-serial chain: the inverse is unique and every product is fully
+    reduced; 0 maps to 0."""
+    table = [spec.const("ONE_MONT", a.device).expand(a.shape).clone(), a]
+    for _ in range(2, 16):
+        table.append(mul(table[-1], a))
+    nibs = spec.inv_exp_nibbles
+    acc = table[nibs[0]]
+    for nib in nibs[1:]:
+        for _ in range(4):
+            acc = mul(acc, acc)
+        acc = mul(acc, table[nib])
+    return acc
+
+
+def mont_inv_plain(spec, a):
+    """Plain PyTorch version of the inversion kernel on (n, L) int limb rows:
+    the Fermat chain over the plain product. Returns (n, L) int32."""
+    return fermat_chain(spec, a.to(torch.int32), lambda x, y: mont_mul_plain(spec, x, y))
+
+
+# --- the CUDA kernels' wrappers ---------------------------------------------
 
 @functools.cache
 def _c_fn(name: str):
@@ -130,4 +158,39 @@ def mont_mul(spec, a, b):
     return out
 
 
-__all__ = ["mont_mul", "mont_mul_plain"]
+@functools.cache
+def _c_inv():
+    fn = library("mont_mul").masp_mont_inv_fq
+    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_longlong, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def mont_inv(spec, a):
+    """a^(N-2) (the inverse, 0 for 0) on (n, L) int32 Montgomery rows of
+    canonical values. A CPU tensor runs the plain version; a CUDA tensor
+    launches the Fq kernel (one thread per row walks the whole chain) or
+    raises: Fr has no inversion kernel."""
+    if a.dtype != torch.int32 or a.dim() != 2 or a.shape[1] != spec.L:
+        raise ValueError(f"mont_inv takes (n, {spec.L}) int32 rows, got {a.dtype} {tuple(a.shape)}")
+    if a.device.type == "cpu":
+        return mont_inv_plain(spec, a)
+    if a.device.type != "cuda":
+        raise ValueError(f"unsupported device {a.device}")
+    if spec.name != "Fq":
+        raise ValueError(f"mont_inv has a kernel for Fq only, not {spec.name}")
+    if not a.is_contiguous():
+        raise ValueError("mont_inv takes a contiguous tensor")
+    out = torch.empty_like(a)
+    if a.shape[0] == 0:
+        return out
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _c_inv()(a.data_ptr(), out.data_ptr(), a.shape[0], stream)
+    if err != 0:
+        raise RuntimeError(f"mont_inv kernel launch failed: CUDA error {err}")
+    count_launch("mont_inv_fq")
+    return out
+
+
+__all__ = ["mont_mul", "mont_mul_plain", "mont_inv", "mont_inv_plain", "fermat_chain"]

@@ -9,6 +9,8 @@ PyTorch, widened to int64 where carries are propagated.
 
 from __future__ import annotations
 
+from functools import partial
+
 import numpy as np
 import torch
 
@@ -133,44 +135,30 @@ def mont_inv(spec: FieldSpec, a):
     return mont_pow_fixed(spec, a, spec.inv_exp_bits)
 
 
-def mont_inv_small(spec: FieldSpec, a, mul=None):
-    """Fermat inversion in 4-bit fixed windows: ceil(bits/4) rounds of four
-    squarings and one table multiply (~475 dependent products instead of
-    ~760). Bit-identical to mont_inv. ``mul(x, y)`` replaces the Montgomery
-    product (the plain versions pass the plain one)."""
-    if mul is None:
-        def mul(x, y):
-            return mont_mul(spec, x, y)
-    table = [one_like(spec, a), a]
-    for _ in range(2, 16):
-        table.append(mul(table[-1], a))
-    nibs = spec.inv_exp_nibbles
-    acc = table[nibs[0]]
-    for nib in nibs[1:]:
-        for _ in range(4):
-            acc = mul(acc, acc)
-        acc = mul(acc, table[nib])
-    return acc
+def mont_inv_small(spec: FieldSpec, a):
+    """Fermat inversion in 4-bit fixed windows (489 dependent products for
+    Fq instead of ~760), bit-identical to mont_inv; 0 maps to 0. Runs the
+    inversion kernel's wrapper (kernels/mont_mul.mont_inv): one launch for
+    the whole chain on a CUDA tensor, its plain chain on a CPU one. The
+    kernel is built for Fq only: a CUDA tensor of Fr raises."""
+    rows = a.reshape(-1, spec.L).to(torch.int32).contiguous()
+    return MK.mont_inv(spec, rows).reshape(a.shape)
 
 
 def tree_batch_inv(spec: FieldSpec, d, mul=None, root_inv=None):
     """Exact batched inversion of w non-zero elements along axis 0, w a
     power of two: a product tree over contiguous halves (p[:h] * p[h:],
     w - 1 products in log2(w) launches), ``root_inv`` on the (1, ...) root
-    (by default mont_inv_small over ``mul``), and the seeded down-sweep
-    (2 (w - 1) products). ``mul`` defaults to mont_mul; the plain versions
-    pass the plain product, Fq2 passes its own product and root inverse.
+    (by default mont_inv_small: Fq only on a CUDA tensor), and the seeded
+    down-sweep (2 (w - 1) products). ``mul`` defaults to mont_mul; the plain
+    versions pass the plain product and root inverse, Fq2 passes its own.
     The inverse of a non-zero element is unique and fully reduced, so any
     tree shape gives the same limbs."""
     w = d.shape[0]
     if w == 0 or w & (w - 1):
         raise ValueError(f"the product-tree inversion takes a power-of-two lane count, got {w}")
-    if mul is None:
-        def mul(x, y):
-            return mont_mul(spec, x, y)
-    if root_inv is None:
-        def root_inv(r):
-            return mont_inv_small(spec, r, mul=mul)
+    mul = mul or partial(mont_mul, spec)
+    root_inv = root_inv or partial(mont_inv_small, spec)
     prods = [d]
     while prods[-1].shape[0] > 1:
         p = prods[-1]
@@ -186,8 +174,8 @@ def tree_batch_inv(spec: FieldSpec, d, mul=None, root_inv=None):
 def batch_mont_inv(spec: FieldSpec, a):
     """Batch inversion over the leading axis of any length: zeros become
     ones and the batch is padded with ones to a power of two for
-    tree_batch_inv (one Fermat inversion of the root). Zero elements map to
-    zero."""
+    tree_batch_inv (one inversion kernel launch on the root: Fq only on a
+    CUDA tensor). Zero elements map to zero."""
     n = a.shape[0]
     one = one_like(spec, a)
     iz = is_zero(a)

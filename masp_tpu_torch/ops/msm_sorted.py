@@ -280,8 +280,9 @@ def _coord_neg(fops, y):
 
 
 def _root_inv(fops, r):
-    """Inverse of the (1, ...) product-tree root by the 4-bit-window Fermat
-    chain; on Fq2 one Fq inversion of the norm: 1/(r0 + r1 u) =
+    """Inverse of the (1, ...) product-tree root by the Fermat chain, one
+    launch of the inversion kernel on a CUDA tensor (F.mont_inv_small); on
+    Fq2 one Fq inversion of the norm: 1/(r0 + r1 u) =
     (r0 - r1 u) / (r0^2 + r1^2)."""
     if len(fops.coord_shape) == 1:
         return F.mont_inv_small(FQ, r)

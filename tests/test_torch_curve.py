@@ -140,13 +140,23 @@ def test_point_add_wrapper_checks_inputs():
 @pytest.mark.cuda
 @pytest.mark.parametrize("group", [1, 2])
 @pytest.mark.parametrize("leaf01", [False, True])
-def test_point_add_kernel_matches_plain(cuda_device, group, leaf01):
+@pytest.mark.parametrize("width", [1, 3, 32, 1003])
+def test_point_add_kernel_matches_plain(cuda_device, group, leaf01, width):
+    """Contiguous and strided operands (the ladder's even/odd views) at the
+    bucket chains' widths 1 and 32 and at ragged 3 and 1003 rows."""
     hgrp, _, enc, _ = GROUPS[group]
     p1, p2 = _pairs(hgrp, 300, 30 + group)
     P, Q = _rows(enc(p1)).to(cuda_device), _rows(enc(p2)).to(cuda_device)
     if not leaf01:
         P = PA.point_add_plain(group, P, torch.roll(Q, 1, 0))
+    reps = -(-width // P.shape[0])
+    P, Q = P.repeat(reps, 1)[-width:], Q.repeat(reps, 1)[-width:]  # the edge lanes come last
     K = P.shape[1]
+    want = PA.point_add_plain(group, P, Q, leaf01)
     pairs = torch.cat([P, Q], dim=1)  # strided operands, as the ladder passes them
+    name = f"g{group}_add01" if leaf01 else f"g{group}_add"
+    before = LAUNCHES[name]
+    assert torch.equal(PA.point_add(group, P, Q, leaf01), want)
     got = PA.point_add(group, pairs[:, :K], pairs[:, K:], leaf01)
-    assert torch.equal(got, PA.point_add_plain(group, P, Q, leaf01))
+    assert torch.equal(got, want)
+    assert LAUNCHES[name] == before + 2

@@ -184,12 +184,41 @@ def test_cuda_entry_point_raises_without_card():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", ["Fr", "Fq"])
-def test_mont_mul_kernel_matches_plain(cuda_device, name):
+@pytest.mark.parametrize("width", [1, 3, 32, 1003, 3005])
+def test_mont_mul_kernel_matches_plain(cuda_device, name, width):
     spec, _ = SPECS[name]
     xs = _ints(spec.modulus, 3000, 8)
-    a = _t(F.encode(spec, xs)).to(cuda_device)
+    a = _t(F.encode(spec, xs)).to(cuda_device)[:width]
     b = a.flip(0).contiguous()
     before = LAUNCHES["mont_mul_" + name.lower()]
     got = MK.mont_mul(spec, a, b)
     assert LAUNCHES["mont_mul_" + name.lower()] == before + 1
     assert torch.equal(got, MK.mont_mul_plain(spec, a, b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [1, 2, 3, 32, 1003])
+def test_mont_inv_kernel_matches_plain(cuda_device, width):
+    """The inversion kernel on 0, 1, q - 1, 2, N - 2 and random rows, bit for
+    bit against its plain chain and host ints."""
+    spec = F.FQ
+    a = _t(F.encode(spec, _ints(spec.modulus, 1000, 9)[::-1][-width:])).to(cuda_device)
+    before = LAUNCHES["mont_inv_fq"]
+    got = MK.mont_inv(spec, a)
+    assert LAUNCHES["mont_inv_fq"] == before + 1
+    assert torch.equal(got, MK.mont_inv_plain(spec, a))
+    assert F.decode(spec, got) == [pow(x, spec.modulus - 2, spec.modulus) for x in F.decode(spec, a)]
+
+
+@pytest.mark.cuda
+def test_mont_inv_raises_for_fr_on_card(cuda_device):
+    """The inversion kernel is built for Fq only: on a CUDA tensor of Fr the
+    wrapper, and the routed inversions of ops/field, raise at the root and
+    launch no inversion."""
+    spec = F.FR
+    a = _t(F.encode(spec, [2, 3, 5, 7])).to(cuda_device)
+    before = LAUNCHES["mont_inv_fq"]
+    for inv in (MK.mont_inv, F.mont_inv_small, F.tree_batch_inv, F.batch_mont_inv):
+        with pytest.raises(ValueError, match="Fq only"):
+            inv(spec, a)
+    assert LAUNCHES["mont_inv_fq"] == before

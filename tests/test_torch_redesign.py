@@ -1,0 +1,212 @@
+"""The CPU side of the two redesigned kernels: the Fq inversion kernel's
+plain chain and its routing (kernels/mont_mul.mont_inv: every Fermat chain
+of the proof path is one launch), and the G2 complete add's thread schedule
+(kernels/point_add.G2_L1 ... G2_OUT) on host ints and in the CUDA source.
+Integer arithmetic: every comparison is exact."""
+
+import os
+import random
+import re
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from masp_tpu.ops import field_jax as FJ
+from masp_tpu_torch.host.bls12_381 import G1, G2, Fq2, R
+from masp_tpu_torch.kernels import LAUNCHES
+from masp_tpu_torch.kernels import affine as AK
+from masp_tpu_torch.kernels import mont_mul as MK
+from masp_tpu_torch.kernels import point_add as PA
+from masp_tpu_torch.ops import field as F
+from masp_tpu_torch.ops import msm_sorted as MS
+from masp_tpu_torch.ops import weierstrass as W
+from masp_tpu_torch.ops.field import FQ
+from masp_tpu_torch.ops.projective import unpack_rows
+
+CSRC = Path(__file__).resolve().parent.parent / "masp_tpu_torch" / "csrc"
+Q = FQ.modulus
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Under pytest-xdist, workers share the CPU: one intra-op thread each
+    keeps torch's thread pools from oversubscribing it."""
+    n = torch.get_num_threads()
+    if os.environ.get("PYTEST_XDIST_WORKER"):
+        torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _inv_rows():
+    """Montgomery rows of 0, 1, q - 1, 2 and seeded values, then the raw
+    rows 1 and q - 1 (Montgomery values R^-1 and (q - 1) R^-1), as int32."""
+    rng = np.random.default_rng(61)
+    vals = [0, 1, Q - 1, 2] + [int(x) * Q // (1 << 62) for x in rng.integers(1, 1 << 62, 8)]
+    mont = F.encode(FQ, vals)
+    raw = F.encode(FQ, [1, Q - 1], mont=False)
+    return torch.as_tensor(np.concatenate([mont, raw]).astype(np.int32))
+
+
+@pytest.fixture(scope="module")
+def jax_inverses():
+    """field_jax.mont_inv_small (compact impl) on _inv_rows(), jitted (one
+    compile of the scan instead of ~490 eager dispatches) with XLA's backend
+    optimisation off: the same integer program, compiled in about half the
+    time."""
+    rows = jnp.asarray(_inv_rows().numpy().astype(np.uint32))
+    lowered = jax.jit(lambda a: FJ.mont_inv_small(FJ.FQ, a)).lower(rows)
+    out = lowered.compile(compiler_options={"xla_backend_optimization_level": 0})(rows)
+    return np.asarray(out).astype(np.int32)
+
+
+def _host_inverses(rows):
+    return F.encode(FQ, [pow(x, Q - 2, Q) for x in F.decode(FQ, rows)]).astype(np.int32)
+
+
+def test_mont_inv_plain_matches_jax_and_host(jax_inverses):
+    a = _inv_rows()
+    got = MK.mont_inv_plain(FQ, a)
+    assert got.dtype == torch.int32
+    assert np.array_equal(got.numpy(), jax_inverses)
+    assert np.array_equal(got.numpy(), _host_inverses(a))
+    assert F.decode(FQ, got[:1]) == [0]  # zero maps to zero
+
+
+def test_routed_inversions_match_jax_and_host(jax_inverses):
+    """F.mont_inv_small runs the inversion kernel's wrapper (the plain chain
+    on a CPU tensor, uncounted); the product tree's default root goes the
+    same way."""
+    a = _inv_rows()
+    before = dict(LAUNCHES)
+    assert np.array_equal(F.mont_inv_small(FQ, a).numpy(), jax_inverses)
+    assert np.array_equal(F.mont_inv_small(FQ, a.reshape(2, 7, FQ.L)).reshape(-1, FQ.L).numpy(), jax_inverses)
+    d = a[1:9]  # eight non-zero rows
+    assert np.array_equal(F.tree_batch_inv(FQ, d).numpy(), _host_inverses(d))
+    assert np.array_equal(F.batch_mont_inv(FQ, a).numpy(), jax_inverses)
+    assert LAUNCHES == before
+
+
+def _counting_mont_inv(monkeypatch):
+    calls = []
+    real = MK.mont_inv
+
+    def counted(spec, a):
+        calls.append(tuple(a.shape))
+        return real(spec, a)
+
+    monkeypatch.setattr(MK, "mont_inv", counted)
+    return calls
+
+
+def _affine_rows(points):
+    x, y, _ = W.encode_g1_points(points)
+    f = np.zeros((len(points), 1), dtype=np.uint32)
+    return torch.as_tensor(np.concatenate([x, y, f], axis=1).astype(np.int32))
+
+
+def test_every_fermat_chain_is_one_inversion_call(monkeypatch):
+    """The G1 affine level (which passes the field's own product to the
+    tree), the G2 root through the norm, and the fetch's batched inversions
+    on both groups each invert through one mont_inv call on one row, and so
+    does the product tree's default root under a caller's own product."""
+    calls = _counting_mont_inv(monkeypatch)
+    rng = random.Random(62)
+    g1 = G1.generator()
+    p1 = [g1 * rng.randrange(1, R) for _ in range(4)]
+    p2 = [g1 * rng.randrange(1, R) for _ in range(4)]
+    got = AK.affine_level(_affine_rows(p1), _affine_rows(p2))
+    assert torch.equal(got, _affine_rows([a + b for a, b in zip(p1, p2)]))
+    assert torch.equal(got, AK.affine_level_plain(_affine_rows(p1), _affine_rows(p2)))
+    assert calls == [(1, FQ.L)]  # the plain level runs its own chain
+    d = torch.as_tensor(W.Fq2Ops.encode([(5, 7), (1, 0)]).astype(np.int32))
+    MS._tree_batch_inv(W.G2Ops, d)
+    assert calls[1:] == [(1, FQ.L)]
+    for fops, grp in ((W.G1Ops, G1), (W.G2Ops, G2)):
+        enc = W.encode_g1_points if fops is W.G1Ops else W.encode_g2_points
+        dec = W.decode_affine_g1 if fops is W.G1Ops else W.decode_affine_g2
+        pts = [grp.generator() * k for k in (3, 5, 9)]
+        X, Y, Z = (torch.as_tensor(np.asarray(c).astype(np.int32)) for c in enc(pts))
+        assert dec(*W.to_affine(fops, (X, Y, Z))) == pts
+    assert calls[2:] == [(1, FQ.L), (1, FQ.L)]
+    F.tree_batch_inv(FQ, d[:, 0], lambda x, y: F.mont_mul(FQ, x, y))
+    assert calls[4:] == [(1, FQ.L)]
+
+
+# --- the G2 add's schedule -----------------------------------------------------
+
+def _scheduled_g2_add(p, q):
+    """RCB'15 Algorithm 7 on host Fq2 projective coordinates through the
+    kernel's tables, one step at a time."""
+    b3 = Fq2(12, 12)
+    zero = Fq2(0, 0)
+    pa, qa = list(p) + [zero], list(q) + [zero]
+    P = [(pa[u] + pa[v]) * (qa[u] + qa[v]) for u, v in PA.G2_L1] + [zero]
+    O = []
+    for d, s, beta, a, b, c in PA.G2_LIN:
+        inner = P[a] - P[b] - P[c]
+        inner = b3 * inner if beta else inner
+        O.append(P[d] + inner if s > 0 else P[d] - inner)
+    Qs = [O[a] * O[b] for a, b in PA.G2_L2]
+    return tuple(Qs[a] + Qs[b] if s > 0 else Qs[a] - Qs[b] for a, b, s in PA.G2_OUT)
+
+
+def _g2_case(name):
+    rng = random.Random(63)
+    g = G2.generator()
+    P, Qp = g * rng.randrange(1, R), g * rng.randrange(1, R)
+    O = G2.identity()
+    return {"P+Q": (P, Qp), "P+P": (P, P), "P+(-P)": (P, -P), "O+P": (O, P), "O+O": (O, O)}[name]
+
+
+@pytest.mark.parametrize("case", ["P+Q", "P+P", "P+(-P)", "O+P", "O+O"])
+def test_g2_schedule_matches_host_addition(case):
+    """The schedule gives the host sum, and the same projective values as
+    the plain version of the kernel (so the same limbs: every step is fully
+    reduced)."""
+    a, b = _g2_case(case)
+    rows = [torch.as_tensor(np.concatenate([np.asarray(c).reshape(1, -1) for c in W.encode_g2_points([pt])],
+                                           axis=1).astype(np.int32)) for pt in (a, b)]
+    coords = [[Fq2(*v) for v in (W.Fq2Ops.decode(c)[0] for c in unpack_rows(2, r))] for r in rows]
+    X3, Y3, Z3 = _scheduled_g2_add(*coords)
+    want = a + b
+    if want.is_identity():
+        assert Z3 == Fq2(0, 0)
+    else:
+        zi = Z3.invert()
+        assert G2.from_xy(X3 * zi, Y3 * zi) == want
+    plain = PA.point_add_plain(2, rows[0], rows[1])
+    assert [Fq2(*W.Fq2Ops.decode(c)[0]) for c in unpack_rows(2, plain)] == [X3, Y3, Z3]
+
+
+def _cuda_table(src, name):
+    body = re.search(name + r"(?:\[\d+\])+ = \{(.*?)\};", src, re.S).group(1)
+    body = re.sub(r"//[^\n]*", "", body)
+    return [int(x) for x in re.findall(r"-?\d+", body)]
+
+
+def test_g2_schedule_matches_cuda_source():
+    src = (CSRC / "point_add.cu").read_text()
+    for name in ("G2_L1", "G2_LIN", "G2_L2", "G2_OUT"):
+        table = getattr(PA, name)
+        assert _cuda_table(src, name) == [v for row in table for v in row], name
+
+
+def test_inverse_nibbles_match_cuda_source():
+    src = (CSRC / "mont_mul.cu").read_text()
+    assert _cuda_table(src, "FQ_INV_NIBBLES") == FQ.inv_exp_nibbles
+    assert len(FQ.inv_exp_nibbles) == 96
+
+
+def test_redesigned_wrappers_check_inputs():
+    with pytest.raises(ValueError):
+        MK.mont_inv(FQ, torch.zeros(4, 16, dtype=torch.int32))
+    with pytest.raises(ValueError):
+        MK.mont_inv(FQ, torch.zeros(4, 24, dtype=torch.int64))
+    before = dict(LAUNCHES)
+    MK.mont_inv(FQ, torch.zeros(2, 24, dtype=torch.int32))
+    assert LAUNCHES == before
