@@ -86,6 +86,9 @@ SOURCE = {k: "masp_tpu_torch/csrc/" + src for k, src in (
 # configuration) and the two tools
 TOOL_KERNELS = ["int8_dot", "int8_dot_loop", "mont_mul_mxu"]
 PROOF_KERNELS = [k for k in REPLACES if k not in TOOL_KERNELS]
+# threads a block of the G1 complete add, each measured in a build of its
+# own: the measurement behind the size that point_add.cu keeps
+G1_BLOCKS = (96, 192)
 # lanes of the affine levels' kernel checks: level 0 of the h query (32
 # windows x 2^17 points / 2) and the composite level at 2^19 lanes
 AFFINE_LANES = 1 << 21
@@ -388,7 +391,7 @@ def kernel_phase(params, dev, rng, card: str) -> dict:
             if leaf:  # the leaf form gives the complete formula's limbs
                 _check_equal(name + " vs complete", add(x, y), PA.point_add(group, x, y, False))
             _check_equal(name + " (strided)", add(pairs[:, :K], pairs[:, K:]), want)
-            for width in (1, 3, 32, 1003):  # the chains' widths and ragged counts, the edge lanes first
+            for width in (1, 3, 32, 128, 1003):  # the chains' widths and ragged counts, the edge lanes first
                 _check_equal(f"{name} (width {width})", add(x[:width], y[:width]), want[:width])
                 _check_equal(f"{name} (width {width}, strided)",
                              add(pairs[:width, :K], pairs[:width, K:]), want[:width])
@@ -403,6 +406,8 @@ def kernel_phase(params, dev, rng, card: str) -> dict:
                     eager, graph = _chain_ms(add, x[:width], y[:width])
                     log(f"kernel {name} chain: {eager:.4f} ms per launch eager, {graph:.4f} ms in a CUDA graph "
                         f"at width {width} (20 dependent launches, median of 5) on {card}")
+            if group == 1 and not leaf:
+                g1_block_phase(x, y, want, nbytes, card)
             out[name]["plain_ms"] = _median_ms(lambda: PA.point_add_plain(group, x, y, leaf), 3)
     out.update(affine_kernel_phase(params, dev, card))
     for name, r in out.items():
@@ -416,6 +421,65 @@ def kernel_phase(params, dev, rng, card: str) -> dict:
             f"for int32 rows, {bytes_ms / 2:.4f} ms for the 16-bit payload; operations {ops_ms:.6f} ms) "
             f"on {card}")
     return out
+
+
+def _g1_add_built_with(block: int):
+    """The G1 complete add of point_add.cu built with ``block`` threads a
+    block (MASP_G1_ADD_BLOCK), called through that library's own C entry:
+    a measurement's build, so its launches are not counted."""
+    import ctypes
+
+    import torch
+
+    from masp_tpu_torch.kernels import build
+
+    fn = build.library("point_add", (f"MASP_G1_ADD_BLOCK={block}",)).masp_point_add
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
+                   ctypes.c_longlong, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+    def add(p, q):
+        out = torch.empty((p.shape[0], p.shape[1]), dtype=torch.int32, device=p.device)
+        err = fn(1, 0, p.data_ptr(), p.stride(0), q.data_ptr(), q.stride(0), out.data_ptr(), p.shape[0],
+                 torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"g1_add built with {block} threads a block: CUDA error {err}")
+        return out
+
+    return add
+
+
+def g1_block_phase(x, y, want, nbytes: int, card: str) -> None:
+    """The G1 complete add built with each of G1_BLOCKS threads a block, bit
+    for bit against the plain version (all pairs, widths 1 and 128,
+    strided), then timed at all pairs and in the bucket chains at widths 1
+    and 128: the measurement behind the size point_add.cu keeps."""
+    import re
+
+    import torch
+
+    from masp_tpu_torch.kernels import build
+
+    src = (build.CSRC / "point_add.cu").read_text()
+    kept = int(re.search(r"#define MASP_G1_ADD_BLOCK (\d+)", src).group(1))
+    K = x.shape[1]
+    pairs = torch.cat([x, y], dim=1)
+    times = {}
+    for block in G1_BLOCKS:
+        add = _g1_add_built_with(block)
+        for width in (x.shape[0], 1, 128):
+            _check_equal(f"g1_add ({block} threads a block, width {width})", add(x[:width], y[:width]), want[:width])
+            _check_equal(f"g1_add ({block} threads a block, width {width}, strided)",
+                         add(pairs[:width, :K], pairs[:width, K:]), want[:width])
+        ms = _kernel_ms(add, (x, y), nbytes)
+        chains = [_chain_ms(add, x[:w], y[:w]) for w in (1, 128)]
+        times[block] = f"{block}: {ms:.4f} ms at {x.shape[0]} pairs, chains {chains[0][1]:.4f} / {chains[1][1]:.4f} ms"
+        log(f"kernel g1_add at {block} threads a block: bit-identical to plain; {ms:.4f} ms per launch in a "
+            f"CUDA graph at {x.shape[0]} pairs (inputs from HBM); chains {chains[0][1]:.4f} / {chains[1][1]:.4f} "
+            f"ms per launch in a CUDA graph, {chains[0][0]:.4f} / {chains[1][0]:.4f} ms eager, at widths 1 / 128 "
+            f"on {card}")
+    log(f"kernel g1_add block size: point_add.cu keeps {kept} threads a block (MASP_G1_ADD_BLOCK); threads a "
+        f"block: {'; '.join(times.values())} (in a CUDA graph; chains at widths 1 / 128) on {card}")
 
 
 def inverse_kernel_phase(dev, rng, card: str) -> dict:
@@ -589,7 +653,8 @@ def _int_mm_ms(x, w, want, nbytes):
 def tools_phase(dev, rng, card) -> dict:
     """The tools' kernels against their plain versions, bit for bit (the
     tolerance is exact equality): int8_dot at the tools' (1024, 48) @ (48,
-    96), on the full signed range and at a ragged (1003, 40) @ (40, 90);
+    96), on the full signed range, at a ragged (1003, 40) @ (40, 90) and
+    (1003, 37) @ (37, 90), and at K = 1 and K = 64;
     int8_dot_loop at k = 8 and 64; mont_mul_mxu against its plain version,
     mont_mul and mont_mul_plain at 2^17 reduced Fq rows with edge lanes and
     at 1003 rows. Then both tools' main at full size, with the launch counts
@@ -615,6 +680,14 @@ def tools_phase(dev, rng, card) -> dict:
     _check_equal("int8_dot (signed range)", I8.int8_dot(xs, ws), I8.int8_dot_plain(xs, ws))
     xr, wr = xs[:1003, :40].contiguous(), ws[:40, :90].contiguous()
     _check_equal("int8_dot (ragged 1003 x 40 x 90)", I8.int8_dot(xr, wr), I8.int8_dot_plain(xr, wr))
+    # a depth that is not a multiple of 4 (the byte path for x), and the
+    # least and the greatest depth the kernel takes, on the signed range
+    x64 = torch.as_tensor(nrng.integers(-128, 128, (M, 64), dtype=np.int8), device=dev)
+    w64 = torch.as_tensor(nrng.integers(-128, 128, (64, N), dtype=np.int8), device=dev)
+    for label, (p, q) in (("ragged 1003 x 37 x 90", (xs[:1003, :37], ws[:37, :90])),
+                          ("K = 1", (x64[:, :1], w64[:1])), ("K = 64", (x64, w64))):
+        p, q = p.contiguous(), q.contiguous()
+        _check_equal(f"int8_dot ({label})", I8.int8_dot(p, q), I8.int8_dot_plain(p, q))
     loop_err = 0.0
     for k in (8, 64):
         loop_err = max(loop_err, _check_equal(f"int8_dot_loop k={k}", I8.int8_dot_loop(x, w, k),
@@ -779,12 +852,13 @@ def main(argv) -> int:
     log(f"card: {card}")
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, python {sys.version.split()[0]}")
     t0 = time.perf_counter()
-    build.build_all()
-    log(f"kernel build: {time.perf_counter() - t0:.1f} s (one nvcc per source, in parallel)")
-    for src in build.SOURCES:
-        for line in build.log_path(src).read_text().splitlines():
+    variants = [("point_add", (f"MASP_G1_ADD_BLOCK={b}",)) for b in G1_BLOCKS]
+    build.build_all(variants)
+    log(f"kernel build: {time.perf_counter() - t0:.1f} s (one nvcc per source and variant, in parallel)")
+    for src, defines in [(s, ()) for s in build.SOURCES] + variants:
+        for line in build.log_path(src, defines).read_text().splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
-                log(f"  ptxas {src}: {line.strip()}")
+                log(f"  ptxas {' '.join([src, *defines])}: {line.strip()}")
 
     rng = random.Random(SEED)
     t0 = time.perf_counter()

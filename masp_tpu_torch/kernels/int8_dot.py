@@ -3,10 +3,13 @@
 
 Replaces the Pallas kernels ``dot_kernel`` (tools/bench_kernel_micro.py:129)
 and ``mm_loop_kernel`` (:154), which the kernel microbenchmark uses to probe
-the TPU's matrix unit. The CUDA kernel is ``csrc/int8_dot.cu`` (warp-level
-IMMA, K <= 64). The plain versions compute the same integers as float64
-products (``ops/limbs.exact_matmul``), exact because every sum is an integer
-below 2^53 (K 128^2 for K <= 2^39).
+the TPU's matrix unit. The CUDA kernels are in ``csrc/int8_dot.cu``
+(warp-level IMMA, K <= 64): the single product fills the card with one warp
+per 16 x 32 output tile and loads its operands in words and 16-byte chunks;
+the loop stages both operands byte by byte for a block of four warps. The
+plain versions compute the same integers as float64 products
+(``ops/limbs.exact_matmul``), exact because every sum is an integer below
+2^53 (K 128^2 for K <= 2^39).
 """
 
 from __future__ import annotations

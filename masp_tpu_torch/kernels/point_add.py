@@ -3,10 +3,10 @@
 Replaces the Pallas kernels ``_g1_add_kernel``, ``_g2_add_kernel``,
 ``_g1_add01_kernel`` and ``_g2_add01_kernel`` of
 masp_tpu/kernels/field_kernels.py (all behind ``_g_add_callable``). The CUDA
-kernels are in ``csrc/point_add.cu``: one thread per pair, a template over
-the group and the leaf specialisation (Z in {0, mont-1}, 9 products instead
-of 12), for all but the G2 complete add, which gives each pair a group of
-six threads that follow the schedule ``G2_L1`` ... ``G2_OUT``.
+kernels are in ``csrc/point_add.cu``: the complete add on either group gives
+each pair a group of six threads that follow the schedule ``ADD_L1`` ...
+``ADD_OUT`` (one template over the coordinate field); the leaf forms (Z in
+{0, mont-1}, 9 products instead of 12) keep one thread per pair.
 
 Points are packed rows (n, 3K) int32 of 16-bit limbs, [X | Y | Z], with
 K = 24 on G1 and K = 48 on G2 (Fq2 coordinates as c0 limbs then c1 limbs);
@@ -43,17 +43,19 @@ class _PlainFq2(Fq2Arith):
     fq_mul = staticmethod(_plain_fq_mul)
 
 
-# The G2 complete add's schedule (csrc/point_add.cu, g2_add_kernel, which
-# holds the same tables). Its twelve Fq2 products run in two layers of six;
-# thread j of a pair's group of six computes product, operand or output j of
-# every step (an Fq2 product as three Fq products, Karatsuba).
-# Layer 1: P_j = (A_u + A_v)(B_u + B_v), (u, v) = G2_L1[j] over the operands'
+# The complete add's schedule on either group (csrc/point_add.cu,
+# group_add_kernel, which holds the same tables). Its twelve products (Fq on
+# G1, Fq2 on G2) run in two layers of six; thread j of a pair's group of six
+# computes product, operand or output j of every step (an Fq2 product as
+# three Fq products, Karatsuba).
+# Layer 1: P_j = (A_u + A_v)(B_u + B_v), (u, v) = ADD_L1[j] over the operands'
 # coordinates X 0, Y 1, Z 2, and 3 for zero.
-G2_L1 = ((0, 3), (1, 3), (2, 3), (0, 1), (1, 2), (0, 2))
+ADD_L1 = ((0, 3), (1, 3), (2, 3), (0, 1), (1, 2), (0, 2))
 # Linear step: O_j = P_d + s * beta(P_a - P_b - P_c), (d, s, beta, a, b, c) =
-# G2_LIN[j], index 6 for zero, beta = b3 = 12(1 + u) when set: O = (t0, t1, Z3,
-# t3, t4, Y3) of RCB'15 Algorithm 7 before its second round of products.
-G2_LIN = (
+# ADD_LIN[j], index 6 for zero, beta = b3 (12 on G1, 12(1 + u) on G2) when
+# set: O = (t0, t1, Z3, t3, t4, Y3) of RCB'15 Algorithm 7 before its second
+# round of products.
+ADD_LIN = (
     (0, -1, 0, 6, 0, 0),  # t0 = 3 P0
     (1, -1, 1, 2, 6, 6),  # t1 = P1 - b3 P2
     (1, 1, 1, 2, 6, 6),   # Z3 = P1 + b3 P2
@@ -61,11 +63,11 @@ G2_LIN = (
     (6, 1, 0, 4, 1, 2),   # t4 = P4 - P1 - P2
     (6, 1, 1, 5, 0, 2),   # Y3 = b3 (P5 - P0 - P2)
 )
-# Layer 2: Q_j = O_a O_b, (a, b) = G2_L2[j].
-G2_L2 = ((4, 5), (3, 1), (5, 0), (1, 2), (0, 3), (2, 4))
-# Output coordinate i (X3, Y3, Z3) = Q_a + s Q_b, (a, b, s) = G2_OUT[i]; its
-# coefficient c is output j = 2 i + c of the step.
-G2_OUT = ((1, 0, -1), (3, 2, 1), (5, 4, 1))
+# Layer 2: Q_j = O_a O_b, (a, b) = ADD_L2[j].
+ADD_L2 = ((4, 5), (3, 1), (5, 0), (1, 2), (0, 3), (2, 4))
+# Output coordinate i (X3, Y3, Z3) = Q_a + s Q_b, (a, b, s) = ADD_OUT[i]: output
+# j = i of the step on G1; on G2 its coefficient c is output j = 2 i + c.
+ADD_OUT = ((1, 0, -1), (3, 2, 1), (5, 4, 1))
 
 
 def point_add_plain(group: int, p, q, leaf01: bool = False):
@@ -123,4 +125,4 @@ def point_add(group: int, p, q, leaf01: bool = False):
     return out
 
 
-__all__ = ["point_add", "point_add_plain", "G2_L1", "G2_LIN", "G2_L2", "G2_OUT"]
+__all__ = ["point_add", "point_add_plain", "ADD_L1", "ADD_LIN", "ADD_L2", "ADD_OUT"]

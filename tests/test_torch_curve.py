@@ -140,10 +140,10 @@ def test_point_add_wrapper_checks_inputs():
 @pytest.mark.cuda
 @pytest.mark.parametrize("group", [1, 2])
 @pytest.mark.parametrize("leaf01", [False, True])
-@pytest.mark.parametrize("width", [1, 3, 32, 1003])
+@pytest.mark.parametrize("width", [1, 3, 32, 128, 1003])
 def test_point_add_kernel_matches_plain(cuda_device, group, leaf01, width):
     """Contiguous and strided operands (the ladder's even/odd views) at the
-    bucket chains' widths 1 and 32 and at ragged 3 and 1003 rows."""
+    bucket chains' widths 1, 32 and 128 and at ragged 3 and 1003 rows."""
     hgrp, _, enc, _ = GROUPS[group]
     p1, p2 = _pairs(hgrp, 300, 30 + group)
     P, Q = _rows(enc(p1)).to(cuda_device), _rows(enc(p2)).to(cuda_device)

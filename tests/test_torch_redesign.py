@@ -1,8 +1,8 @@
-"""The CPU side of the two redesigned kernels: the Fq inversion kernel's
-plain chain and its routing (kernels/mont_mul.mont_inv: every Fermat chain
-of the proof path is one launch), and the G2 complete add's thread schedule
-(kernels/point_add.G2_L1 ... G2_OUT) on host ints and in the CUDA source.
-Integer arithmetic: every comparison is exact."""
+"""The CPU side of the redesigned kernels: the Fq inversion kernel's plain
+chain and its routing (kernels/mont_mul.mont_inv: every Fermat chain of the
+proof path is one launch), and the complete add's thread schedule on G1 and
+G2 (kernels/point_add.ADD_L1 ... ADD_OUT) on host ints and in the CUDA
+source. Integer arithmetic: every comparison is exact."""
 
 import os
 import random
@@ -137,50 +137,65 @@ def test_every_fermat_chain_is_one_inversion_call(monkeypatch):
     assert calls[4:] == [(1, FQ.L)]
 
 
-# --- the G2 add's schedule -----------------------------------------------------
+# --- the complete add's schedule ------------------------------------------------
 
-def _scheduled_g2_add(p, q):
-    """RCB'15 Algorithm 7 on host Fq2 projective coordinates through the
-    kernel's tables, one step at a time."""
-    b3 = Fq2(12, 12)
-    zero = Fq2(0, 0)
+def _scheduled_add(grp, p, q):
+    """RCB'15 Algorithm 7 on host projective coordinates of G1 (Fq) or G2
+    (Fq2) through the kernel's tables, one step at a time; b3 = 3 b (12 on
+    G1, 12(1 + u) on G2)."""
+    b3 = grp.B + grp.B + grp.B
+    zero = grp.B - grp.B
     pa, qa = list(p) + [zero], list(q) + [zero]
-    P = [(pa[u] + pa[v]) * (qa[u] + qa[v]) for u, v in PA.G2_L1] + [zero]
+    P = [(pa[u] + pa[v]) * (qa[u] + qa[v]) for u, v in PA.ADD_L1] + [zero]
     O = []
-    for d, s, beta, a, b, c in PA.G2_LIN:
+    for d, s, beta, a, b, c in PA.ADD_LIN:
         inner = P[a] - P[b] - P[c]
         inner = b3 * inner if beta else inner
         O.append(P[d] + inner if s > 0 else P[d] - inner)
-    Qs = [O[a] * O[b] for a, b in PA.G2_L2]
-    return tuple(Qs[a] + Qs[b] if s > 0 else Qs[a] - Qs[b] for a, b, s in PA.G2_OUT)
+    Qs = [O[a] * O[b] for a, b in PA.ADD_L2]
+    return tuple(Qs[a] + Qs[b] if s > 0 else Qs[a] - Qs[b] for a, b, s in PA.ADD_OUT)
 
 
-def _g2_case(name):
+def _case(grp, name):
     rng = random.Random(63)
-    g = G2.generator()
+    g = grp.generator()
     P, Qp = g * rng.randrange(1, R), g * rng.randrange(1, R)
-    O = G2.identity()
+    O = grp.identity()
     return {"P+Q": (P, Qp), "P+P": (P, P), "P+(-P)": (P, -P), "O+P": (O, P), "O+O": (O, O)}[name]
 
 
-@pytest.mark.parametrize("case", ["P+Q", "P+P", "P+(-P)", "O+P", "O+O"])
-def test_g2_schedule_matches_host_addition(case):
+def _host_coords(group, rows):
+    """(1, 3K) rows -> the host field's X, Y, Z (Fq elements of G1.B's type
+    on G1, Fq2 on G2)."""
+    if group == 1:
+        return [type(G1.B)(W.FqOps.decode(c)[0]) for c in unpack_rows(1, rows)]
+    return [Fq2(*W.Fq2Ops.decode(c)[0]) for c in unpack_rows(2, rows)]
+
+
+CASES = ["P+Q", "P+P", "P+(-P)", "O+P", "O+O"]
+
+
+# the G2 cases keep their ids from before the schedule covered G1
+@pytest.mark.parametrize("group,case", [(2, c) for c in CASES] + [(1, c) for c in CASES],
+                         ids=CASES + [f"G1-{c}" for c in CASES])
+def test_g2_schedule_matches_host_addition(group, case):
     """The schedule gives the host sum, and the same projective values as
     the plain version of the kernel (so the same limbs: every step is fully
-    reduced)."""
-    a, b = _g2_case(case)
-    rows = [torch.as_tensor(np.concatenate([np.asarray(c).reshape(1, -1) for c in W.encode_g2_points([pt])],
+    reduced), on G2 and on G1."""
+    grp = G1 if group == 1 else G2
+    enc = W.encode_g1_points if group == 1 else W.encode_g2_points
+    a, b = _case(grp, case)
+    rows = [torch.as_tensor(np.concatenate([np.asarray(c).reshape(1, -1) for c in enc([pt])],
                                            axis=1).astype(np.int32)) for pt in (a, b)]
-    coords = [[Fq2(*v) for v in (W.Fq2Ops.decode(c)[0] for c in unpack_rows(2, r))] for r in rows]
-    X3, Y3, Z3 = _scheduled_g2_add(*coords)
+    X3, Y3, Z3 = _scheduled_add(grp, *(_host_coords(group, r) for r in rows))
     want = a + b
     if want.is_identity():
-        assert Z3 == Fq2(0, 0)
+        assert Z3 == grp.B - grp.B
     else:
         zi = Z3.invert()
-        assert G2.from_xy(X3 * zi, Y3 * zi) == want
-    plain = PA.point_add_plain(2, rows[0], rows[1])
-    assert [Fq2(*W.Fq2Ops.decode(c)[0]) for c in unpack_rows(2, plain)] == [X3, Y3, Z3]
+        assert grp.from_xy(X3 * zi, Y3 * zi) == want
+    plain = PA.point_add_plain(group, rows[0], rows[1])
+    assert _host_coords(group, plain) == [X3, Y3, Z3]
 
 
 def _cuda_table(src, name):
@@ -190,10 +205,16 @@ def _cuda_table(src, name):
 
 
 def test_g2_schedule_matches_cuda_source():
+    """The four tables agree with the .cu, which holds one copy of each and
+    one kernel template that both groups' complete adds instantiate."""
     src = (CSRC / "point_add.cu").read_text()
-    for name in ("G2_L1", "G2_LIN", "G2_L2", "G2_OUT"):
+    for name in ("ADD_L1", "ADD_LIN", "ADD_L2", "ADD_OUT"):
         table = getattr(PA, name)
+        assert len(re.findall(r"__constant__ int " + name + r"\[", src)) == 1, name
         assert _cuda_table(src, name) == [v for row in table for v in row], name
+    assert "G2_" not in src
+    assert "launch_group<FqE>" in src and "launch_group<Fq2E>" in src
+    assert len(re.findall(r"__global__", src)) == 2  # group_add_kernel and the leaf forms' kernel
 
 
 def test_inverse_nibbles_match_cuda_source():

@@ -88,6 +88,35 @@ def test_int8_dot_plain_matches_jax_and_numpy(lo, hi):
     assert np.array_equal(got.numpy(), x.astype(np.int32) @ w.astype(np.int32))
 
 
+def _pallas_dot(x, w):
+    """The JAX tool's dot_kernel, as it runs off the TPU: its body in
+    pl.pallas_call, interpreted."""
+    from jax.experimental import pallas as pl
+
+    def dot_kernel(x_ref, w_ref, o_ref):
+        o_ref[:] = jax.lax.dot_general(x_ref[:], w_ref[:], (((1,), (0,)), ((), ())),
+                                       preferred_element_type=jnp.int32)
+
+    out = jax.ShapeDtypeStruct((x.shape[0], w.shape[1]), jnp.int32)
+    return np.asarray(pl.pallas_call(dot_kernel, out_shape=out, interpret=True)(jnp.asarray(x), jnp.asarray(w)))
+
+
+# the kernel's ragged depths: not a multiple of 4 (x's byte path), the least, the greatest
+@pytest.mark.parametrize("M,K,N", [(1003, 37, 90), (1024, 1, 96), (1024, 64, 96)])
+def test_int8_dot_plain_matches_jax_dot_kernel_at_ragged_depths(M, K, N):
+    """The plain version (which a CPU tensor runs, counting no launch)
+    equals the JAX tool's dot_kernel and numpy on the signed range."""
+    rng = np.random.default_rng(7)
+    x, w = _int8(rng, -128, 128, (M, K)), _int8(rng, -128, 128, (K, N))
+    x[0], w[:, 0] = -128, -128
+    before = dict(LAUNCHES)
+    got = I8.int8_dot(torch.as_tensor(x), torch.as_tensor(w))
+    assert LAUNCHES == before
+    assert got.dtype == torch.int32 and tuple(got.shape) == (M, N)
+    assert np.array_equal(got.numpy(), _pallas_dot(x, w))
+    assert np.array_equal(got.numpy(), x.astype(np.int32) @ w.astype(np.int32))
+
+
 @pytest.mark.parametrize("k", [8, 64])
 def test_int8_dot_loop_plain_matches_jax_fori_loop(k):
     """The JAX tool's mm_loop_kernel body: acc + dot, k times."""
@@ -213,6 +242,19 @@ def test_tools_default_to_the_card():
         BT.main()
     with pytest.raises(RuntimeError):
         ET.main()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K,N", [(1003, 37, 90), (1024, 1, 96), (1024, 64, 96), (1024, 48, 96)])
+def test_int8_dot_kernel_matches_plain(cuda_device, M, K, N):
+    """The single-product kernel at ragged and edge depths and at the tools'
+    shape, on the signed range: one launch each."""
+    rng = np.random.default_rng(10)
+    x = torch.as_tensor(_int8(rng, -128, 128, (M, K)), device=cuda_device)
+    w = torch.as_tensor(_int8(rng, -128, 128, (K, N)), device=cuda_device)
+    before = LAUNCHES["int8_dot"]
+    assert torch.equal(I8.int8_dot(x, w), I8.int8_dot_plain(x, w))
+    assert LAUNCHES["int8_dot"] == before + 1
 
 
 @pytest.mark.cuda
