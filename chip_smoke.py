@@ -4,8 +4,8 @@ holds each against its plain PyTorch version at the main path's shapes,
 runs the port's two measurement tools at full size (the kernel
 microbenchmark and the tensor-core Montgomery experiment, whose int8 and
 Montgomery kernels are held the same way first), then proves a Spend-shaped
-Groth16 circuit three times in each MSM configuration (the batch-affine
-ladder, the default, then the projective scan ladder) and checks every proof
+Groth16 circuit three times in each MSM configuration (the projective scan
+ladder, the default, then the batch-affine ladder) and checks every proof
 with the host pairing verifier and against a toxic-waste oracle.
 
     python3 chip_smoke.py            # everything (one card)
@@ -63,7 +63,8 @@ L2_BYTES = 50 * 2**20  # the H100 SXM's L2 cache
 REPLACES = {
     "mont_mul_fr": "masp_tpu/kernels/field_kernels.py:350",
     "mont_mul_fq": "masp_tpu/kernels/field_kernels.py:350",
-    # the Fermat chain of :350 launches that field_jax.mont_inv_small runs
+    # the Fermat chains of :350 launches that field_jax.mont_inv_small runs
+    "mont_inv_fr": "masp_tpu/ops/field_jax.py:233",
     "mont_inv_fq": "masp_tpu/ops/field_jax.py:233",
     "g1_add": "masp_tpu/kernels/field_kernels.py:356",
     "g2_add": "masp_tpu/kernels/field_kernels.py:425",
@@ -71,28 +72,50 @@ REPLACES = {
     "g2_add01": "masp_tpu/kernels/field_kernels.py:397",
     "affine_pre": "masp_tpu/kernels/field_kernels.py:257",
     "affine_post": "masp_tpu/kernels/field_kernels.py:299",
+    # G2's affine level has no Pallas body: the JAX package composes it
+    "affine_pre_g2": "masp_tpu/ops/msm_sorted.py:435",
+    "affine_post_g2": "masp_tpu/ops/msm_sorted.py:435",
     "int8_dot": "tools/bench_kernel_micro.py:129",
     "int8_dot_loop": "tools/bench_kernel_micro.py:154",
     "mont_mul_mxu": "tools/exp_mxu_mont.py:191",
 }
 SOURCE = {k: "masp_tpu_torch/csrc/" + src for k, src in (
-    ("mont_mul_fr", "mont_mul.cu"), ("mont_mul_fq", "mont_mul.cu"), ("mont_inv_fq", "mont_mul.cu"),
+    ("mont_mul_fr", "mont_mul.cu"), ("mont_mul_fq", "mont_mul.cu"),
+    ("mont_inv_fr", "mont_mul.cu"), ("mont_inv_fq", "mont_mul.cu"),
     ("g1_add", "point_add.cu"), ("g2_add", "point_add.cu"),
     ("g1_add01", "point_add.cu"), ("g2_add01", "point_add.cu"),
     ("affine_pre", "affine.cu"), ("affine_post", "affine.cu"),
+    ("affine_pre_g2", "affine.cu"), ("affine_post_g2", "affine.cu"),
     ("int8_dot", "int8_dot.cu"), ("int8_dot_loop", "int8_dot.cu"),
     ("mont_mul_mxu", "mont_mul_mxu.cu"))}
-# the kernels each driven path must launch: the proof path (affine
-# configuration) and the two tools
+# each kernel's entry function in ptxas's report: (source, a part of its
+# mangled name)
+ENTRY = {
+    "mont_mul_fr": ("mont_mul", "mont_mul_kernelI2Fr"), "mont_mul_fq": ("mont_mul", "mont_mul_kernelI2Fq"),
+    "mont_inv_fr": ("mont_mul", "mont_inv_kernelI2Fr"), "mont_inv_fq": ("mont_mul", "mont_inv_kernelI2Fq"),
+    "g1_add": ("point_add", "group_add_kernelI2FeI2Fq"), "g2_add": ("point_add", "group_add_kernelI4Fq2E"),
+    "g1_add01": ("point_add", "point_add_kernelI2FeI2Fq"), "g2_add01": ("point_add", "point_add_kernelI4Fq2E"),
+    "affine_pre": ("affine", "affine_pre_kernelI2FeI2Fq"), "affine_post": ("affine", "affine_post_kernelI2FeI2Fq"),
+    "affine_pre_g2": ("affine", "affine_pre_kernelI4Fq2E"), "affine_post_g2": ("affine", "affine_post_kernelI4Fq2E"),
+    "int8_dot": ("int8_dot", "int8_dot_kernel"), "int8_dot_loop": ("int8_dot", "int8_dot_loop_kernel"),
+    "mont_mul_mxu": ("mont_mul_mxu", "mont_mul_mxu_kernel"),
+}
+# the kernels each driven path must launch: the proof path (the affine
+# configuration runs them all, the scan one all but the affine kernels) and
+# the two tools; the Fr inversion has no caller on either and is checked in
+# the kernel phase alone
 TOOL_KERNELS = ["int8_dot", "int8_dot_loop", "mont_mul_mxu"]
-PROOF_KERNELS = [k for k in REPLACES if k not in TOOL_KERNELS]
+PROOF_KERNELS = [k for k in REPLACES if k not in TOOL_KERNELS and k != "mont_inv_fr"]
 # threads a block of the G1 complete add, each measured in a build of its
 # own: the measurement behind the size that point_add.cu keeps
 G1_BLOCKS = (96, 192)
 # lanes of the affine levels' kernel checks: level 0 of the h query (32
-# windows x 2^17 points / 2) and the composite level at 2^19 lanes
-AFFINE_LANES = 1 << 21
+# windows x 2^17 points / 2) and of b_g2's full part (32 windows x 2^14
+# points / 2); the G1 composite level at 2^19 lanes
+AFFINE_LANES = {1: 1 << 21, 2: 1 << 18}
 AFFINE_LEVEL_LANES = 1 << 19
+# Fq products of 2 (2 W^2 + W) IMADs, W = 12
+FQ_IMAD = 2 * (2 * 144 + 12)
 
 
 def log(msg: str) -> None:
@@ -371,13 +394,13 @@ def kernel_phase(params, dev, rng, card: str) -> dict:
             "plain_ms": _median_ms(lambda: MK.mont_mul_plain(spec, a, b), 3),
             "ops_ms": _imad_ms(n * 2 * (2 * w * w + w)), "bytes": nbytes,
         }
-    out["mont_inv_fq"] = inverse_kernel_phase(dev, rng, card)
-    fq_imad = 2 * (2 * 144 + 12)
+    for spec in (FR, FQ):
+        out["mont_inv_" + spec.name.lower()] = inverse_kernel_phase(spec, dev, rng, card)
     for group, rows in ((1, params.h), (2, params.b_g2)):
         n = 1 << 16
         P, Q, Pp, Qp = _point_inputs(group, rows, n, dev)
         K = 3 * (24 if group == 1 else 48)
-        per_mul = fq_imad * (1 if group == 1 else 3)
+        per_mul = FQ_IMAD * (1 if group == 1 else 3)
         for leaf, (x, y) in ((True, (P, Q)), (False, (Pp, Qp))):
             name = f"g{group}_add01" if leaf else f"g{group}_add"
             pairs = torch.cat([x, y], dim=1)  # strided operands, as the MSM ladder passes them
@@ -482,65 +505,70 @@ def g1_block_phase(x, y, want, nbytes: int, card: str) -> None:
         f"block: {'; '.join(times.values())} (in a CUDA graph; chains at widths 1 / 128) on {card}")
 
 
-def inverse_kernel_phase(dev, rng, card: str) -> dict:
-    """mont_inv_fq bit for bit against its plain chain at 1, 2 and 1003 rows
-    (0, 1, q - 1, 2, q - 2, the raw 1 and mont-1 among the first rows), and
-    its time at the proof path's width, one row, beside the 489-launch eager
-    chain of mont_mul_fq launches that it replaces."""
+def inverse_kernel_phase(spec, dev, rng, card: str) -> dict:
+    """The inversion kernel of ``spec`` (Fr or Fq) bit for bit against its
+    plain chain at 1, 2 and 1003 rows (0, 1, N - 1, 2, N - 2, the raw 1 and
+    mont-1 among the first rows), and its time at the proof path's width,
+    one row, beside the eager chain of mont_mul launches that it replaces."""
     from masp_tpu_torch.kernels import mont_mul as MK
     from masp_tpu_torch.ops import field as F
-    from masp_tpu_torch.ops.field import FQ
 
-    a, _ = _field_inputs(FQ, 1003, rng, dev)
+    name = "mont_inv_" + spec.name.lower()
+    a, _ = _field_inputs(spec, 1003, rng, dev)
     err = 0.0
     for n in (1, 2, 1003):
-        err = max(err, _check_equal(f"mont_inv_fq ({n} rows)", MK.mont_inv(FQ, a[:n]), MK.mont_inv_plain(FQ, a[:n])))
+        err = max(err, _check_equal(f"{name} ({n} rows)", MK.mont_inv(spec, a[:n]), MK.mont_inv_plain(spec, a[:n])))
+    if F.decode(spec, MK.mont_inv(spec, a[:1])) != [0]:
+        raise AssertionError(f"{name}: 0 does not map to 0")
     row = a[3:4]  # the Montgomery form of 2
-    chain = 14 + 5 * (len(FQ.inv_exp_nibbles) - 1)  # the table, then 4 + 1 per lower nibble: 489
-    w = FQ.L // 2
+    # the table, then 4 + 1 per lower nibble: 489 for Fq, 329 for Fr
+    chain = 14 + 5 * (len(spec.inv_exp_nibbles) - 1)
+    w = spec.L // 2
 
     def old_chain():
-        return MK.fermat_chain(FQ, row, lambda x, y: F.mont_mul(FQ, x, y))
+        return MK.fermat_chain(spec, row, lambda x, y: F.mont_mul(spec, x, y))
 
-    _check_equal("mont_inv_fq vs the mont_mul_fq chain", MK.mont_inv(FQ, row), old_chain())
+    _check_equal(f"{name} vs the mont_mul chain", MK.mont_inv(spec, row), old_chain())
     r = {
         "n": 1, "max_abs_err": err,
-        "ms": _kernel_ms(lambda x: MK.mont_inv(FQ, x), (row,), 2 * FQ.L * 4, launches=20, from_hbm=False),
-        "eager_ms": _median_ms(lambda: MK.mont_inv(FQ, row), 10),
-        "plain_ms": _median_ms(lambda: MK.mont_inv_plain(FQ, row), 3),
-        "ops_ms": _imad_ms(chain * 2 * (2 * w * w + w)), "bytes": 2 * FQ.L * 4,
+        "ms": _kernel_ms(lambda x: MK.mont_inv(spec, x), (row,), 2 * spec.L * 4, launches=20, from_hbm=False),
+        "eager_ms": _median_ms(lambda: MK.mont_inv(spec, row), 10),
+        "plain_ms": _median_ms(lambda: MK.mont_inv_plain(spec, row), 3),
+        "ops_ms": _imad_ms(chain * 2 * (2 * w * w + w)), "bytes": 2 * spec.L * 4,
         "inputs": "one row, latency-bound",
     }
-    wide = _kernel_ms(lambda x: MK.mont_inv(FQ, x), (a,), 2 * 1003 * FQ.L * 4, launches=20, from_hbm=False)
-    log(f"kernel mont_inv_fq: {r['ms']:.4f} ms per launch in a CUDA graph at 1 row ({wide:.4f} ms at 1003 rows), "
-        f"{r['eager_ms']:.4f} ms eager; the {chain}-launch eager mont_mul_fq chain it replaces: "
+    wide = _kernel_ms(lambda x: MK.mont_inv(spec, x), (a,), 2 * 1003 * spec.L * 4, launches=20, from_hbm=False)
+    log(f"kernel {name}: {r['ms']:.4f} ms per launch in a CUDA graph at 1 row ({wide:.4f} ms at 1003 rows), "
+        f"{r['eager_ms']:.4f} ms eager; the {chain}-launch eager mont_mul_{spec.name.lower()} chain it replaces: "
         f"{_median_ms(old_chain, 3):.3f} ms (median of 3) on {card}")
     return r
 
 
 def _affine_inputs(rows_np, n, dev):
-    """(P1, P2) affine rows [x | y | f] (n, 49) from encoded G1 points, with
-    P+P, P+(-P), identity+P, P+identity, identity+identity, and a flagged
-    lane over an unrelated point's coordinates in the first lanes."""
+    """(P1, P2) affine rows [x | y | f] (n, 2k + 1) from encoded projective
+    points (n, 3k), G1 or G2, with P+P, P+(-P), identity+P, P+identity,
+    identity+identity, and a flagged lane over an unrelated point's
+    coordinates in the first lanes."""
     import torch
 
     from masp_tpu_torch.ops import field as F
     from masp_tpu_torch.ops.field import FQ
 
+    k = rows_np.shape[1] // 3
     reps = -(-(n + 7) // rows_np.shape[0])
     base = torch.as_tensor(np.tile(rows_np, (reps, 1))[: n + 7], device=dev)
-    aff = torch.cat([base[:, :48], (base[:, 48:] == 0).all(dim=1, keepdim=True).to(torch.int32)], dim=1)
+    aff = torch.cat([base[:, : 2 * k], (base[:, 2 * k :] == 0).all(dim=1, keepdim=True).to(torch.int32)], dim=1)
     P1, P2 = aff[:n].clone(), aff[7 : n + 7].clone()
-    ident = torch.zeros(49, dtype=torch.int32, device=dev)
-    ident[24:48] = FQ.const("ONE_MONT", dev)
-    ident[48] = 1
+    ident = torch.zeros(2 * k + 1, dtype=torch.int32, device=dev)
+    ident[k : k + FQ.L] = FQ.const("ONE_MONT", dev)
+    ident[2 * k] = 1
     P2[0] = P1[0]
     P2[1] = P1[1]
-    P2[1, 24:48] = F.neg(FQ, P1[1:2, 24:48])[0]
+    P2[1, k : 2 * k] = F.neg(FQ, P1[1, k : 2 * k].reshape(-1, FQ.L)).reshape(-1)
     P1[2] = ident
     P2[3] = ident
     P1[4], P2[4] = ident, ident
-    P1[5, 48] = 1  # the identity, over another point's coordinates
+    P1[5, 2 * k] = 1  # the identity, over another point's coordinates
     return P1, P2
 
 
@@ -556,84 +584,116 @@ def _chunked(fn, n, *args, chunk=AFFINE_LEVEL_LANES):
     return torch.cat(parts)
 
 
-def affine_kernel_phase(params, dev, card: str) -> dict:
-    """affine_pre and affine_post at h's level-0 width, and the composite
-    affine_level, each bit for bit against its plain version; the root
-    inverse's launch count and time."""
+def affine_instance_phase(group, rows_np, dev, card: str) -> dict:
+    """affine_pre and affine_post of one group at its level-0 width, bit for
+    bit against their plain versions: contiguous, strided (as the ladder
+    passes them) and ragged (1003 lanes), with the edge lanes' case codes and
+    identity flags."""
     import torch
 
-    from masp_tpu_torch.kernels import LAUNCHES, affine as AK
-    from masp_tpu_torch.ops import msm_sorted as MS, weierstrass as W
+    from masp_tpu_torch.kernels import affine as AK
+    from masp_tpu_torch.ops import field as F
+    from masp_tpu_torch.ops.field import FQ
 
-    n = AFFINE_LANES
-    P1, P2 = _affine_inputs(params.h, n, dev)
+    n = AFFINE_LANES[group]
+    sfx = "" if group == 1 else "_g2"
+    P1, P2 = _affine_inputs(rows_np, n, dev)
+    row = P1.shape[1]
     pairs = torch.cat([P1, P2], dim=1)  # strided operands, as the ladder passes them
-    S1, S2 = pairs[:, : AK.ROW], pairs[:, AK.ROW :]
+    S1, S2 = pairs[:, :row], pairs[:, row:]
     pre = AK.affine_pre(P1, P2)
     pre_plain = _chunked(AK.affine_pre_plain, n, P1, P2)
-    err = max(_check_equal(f"affine_pre {part}", got, want)
-              for part, got, want in zip(("n", "d", "code"), pre, pre_plain))
+    err = max(_check_equal(f"affine_pre{sfx} {part}", got, want)
+              for part, got, want in zip(("n", "norm", "code"), pre, pre_plain))
     codes = pre[2][:6].tolist()
-    if codes != [0, 4, 1, 2, 3, 1]:
-        raise AssertionError(f"affine_pre: edge-lane case codes {codes}, want [0, 4, 1, 2, 3, 1]")
-    for part, got, want in zip(("n", "d", "code"), AK.affine_pre(S1, S2), pre):
-        _check_equal(f"affine_pre {part} (strided)", got, want)
-    for part, got, want in zip(("n", "d", "code"), AK.affine_pre(P1[:1003], P2[:1003]),
+    if codes != [8, 4, 1, 2, 3, 1]:
+        raise AssertionError(f"affine_pre{sfx}: edge-lane case codes {codes}, want [8, 4, 1, 2, 3, 1]")
+    for part, got, want in zip(("n", "norm", "code"), AK.affine_pre(S1, S2), pre):
+        _check_equal(f"affine_pre{sfx} {part} (strided)", got, want)
+    for part, got, want in zip(("n", "norm", "code"), AK.affine_pre(P1[:1003], P2[:1003]),
                                AK.affine_pre_plain(P1[:1003], P2[:1003])):
-        _check_equal(f"affine_pre {part} (ragged)", got, want)
-    nn, d, code = pre
-    inv = MS._tree_batch_inv(W.G1Ops, d)
-    post = AK.affine_post(nn, inv, P1, P2, code)
-    post_err = _check_equal("affine_post", post, _chunked(AK.affine_post_plain, n, nn, inv, P1, P2, code))
-    _check_equal("affine_post (strided)", AK.affine_post(nn, inv, S1, S2, code), post)
-    _check_equal("affine_post (ragged)", AK.affine_post(nn[:1003], inv[:1003], P1[:1003], P2[:1003], code[:1003]),
-                 AK.affine_post_plain(nn[:1003], inv[:1003], P1[:1003], P2[:1003], code[:1003]))
-    flags = post[:6, 48].tolist()
+        _check_equal(f"affine_pre{sfx} {part} (ragged)", got, want)
+    nn, norm, code = pre
+    ninv = F.tree_batch_inv(FQ, norm)
+    post = AK.affine_post(nn, ninv, P1, P2, code)
+    post_err = _check_equal(f"affine_post{sfx}", post, _chunked(AK.affine_post_plain, n, nn, ninv, P1, P2, code))
+    _check_equal(f"affine_post{sfx} (strided)", AK.affine_post(nn, ninv, S1, S2, code), post)
+    _check_equal(f"affine_post{sfx} (ragged)", AK.affine_post(nn[:1003], ninv[:1003], P1[:1003], P2[:1003], code[:1003]),
+                 AK.affine_post_plain(nn[:1003], ninv[:1003], P1[:1003], P2[:1003], code[:1003]))
+    flags = post[:6, -1].tolist()
     if flags != [0, 1, 0, 0, 1, 0]:
-        raise AssertionError(f"affine_post: edge-lane identity flags {flags}, want [0, 1, 0, 0, 1, 0]")
-    m = AFFINE_LEVEL_LANES
-    lvl = AK.affine_level(S1[:m], S2[:m])
-    _check_equal("affine_level", lvl, AK.affine_level_plain(P1[:m], P2[:m]))
-    log(f"kernel affine_level: {m} lanes bit-identical to affine_level_plain (tolerance: exact); "
-        f"{_median_ms(lambda: AK.affine_level(S1[:m], S2[:m]), 3):.3f} ms at {m} lanes, "
-        f"{_median_ms(lambda: AK.affine_level(S1, S2), 3):.3f} ms at {n} lanes (median of 3) on {card}")
-    # one composed G2 level at the b_g2 full part's level-0 width (32
-    # windows x 2^14 points): its Fq2 products go through the Fq kernel
-    g2 = torch.as_tensor(np.tile(params.b_g2, (-(-m // params.b_g2.shape[0]), 1))[:m], device=dev)
-    g2 = torch.cat([g2[:, :96], (g2[:, 96:] == 0).all(dim=1, keepdim=True).to(torch.int32)], dim=1)
-    before = LAUNCHES["mont_mul_fq"]
-    MS._affine_halve(W.G2Ops, g2)
-    launches = LAUNCHES["mont_mul_fq"] - before
-    log(f"composed G2 affine level: {m // 2} pairs, {_median_ms(lambda: MS._affine_halve(W.G2Ops, g2), 3):.3f} ms "
-        f"(median of 3), {launches} mont_mul_fq launches on {card}")
-    for fops in (W.G1Ops, W.G2Ops):
-        root = torch.stack([P1[8:9, :24]] * (1 if fops is W.G1Ops else 2), dim=1).reshape((1,) + fops.coord_shape)
-        before = dict(LAUNCHES)
-        MS._root_inv(fops, root)
-        launches = {k: LAUNCHES[k] - before[k] for k in ("mont_mul_fq", "mont_inv_fq")}
-        ms = _median_ms(lambda: MS._root_inv(fops, root), 3)
-        log(f"root inverse of one affine level, G{fops.GROUP}: launches {json.dumps(launches)}, "
-            f"{ms:.3f} ms (median of 3) on {card}")
-    # one Fq product; rows 2 x 49 in, n and d (24 each) and the code out
-    pre_bytes = n * 4 * (2 * 49 + 2 * 24 + 1)
-    # three Fq products; n, inv, 2 rows and the code in, one row out
-    post_bytes = n * 4 * (2 * 24 + 2 * 49 + 1 + 49)
+        raise AssertionError(f"affine_post{sfx}: edge-lane identity flags {flags}, want [0, 1, 0, 0, 1, 0]")
+    # Fq products the lanes need: pre squares x1 on doubling lanes (1 on
+    # G1, 2 on G2) and forms the G2 norm (2); post runs on lanes that add
+    # (code 0 or 8): lam, lam^2, y3 on G1, and d^-1, lam, lam^2, y3 (2 + 3
+    # + 2 + 3) on G2
+    dbl = int(((code & 8) != 0).sum())
+    adds = int(((code & 7) == 0).sum())
+    pre_products = dbl * group + (0 if group == 1 else 2 * n)
+    post_products = adds * (3 if group == 1 else 10)
+    k = (row - 1) // 2
+    # rows 2 x row in, n (k), the norm (24) and the code out
+    pre_bytes = n * 4 * (2 * row + k + FQ.L + 1)
+    # n, the norm's inverse, 2 rows and the code in, one row out
+    post_bytes = n * 4 * (k + FQ.L + 2 * row + 1 + row)
+    log(f"affine{sfx} lanes at {n}: {dbl} doubling, {adds} adding, {n - adds - dbl} pass-through or identity")
     return {
-        "affine_pre": {
+        "affine_pre" + sfx: {
             "n": n, "max_abs_err": err,
             "ms": _kernel_ms(AK.affine_pre, (S1, S2), pre_bytes),
             "eager_ms": _median_ms(lambda: AK.affine_pre(S1, S2), 10),
             "plain_ms": _median_ms(lambda: _chunked(AK.affine_pre_plain, n, P1, P2), 3),
-            "ops_ms": _imad_ms(n * 2 * (2 * 144 + 12)), "bytes": pre_bytes,
+            "ops_ms": _imad_ms(pre_products * FQ_IMAD), "bytes": pre_bytes,
         },
-        "affine_post": {
+        "affine_post" + sfx: {
             "n": n, "max_abs_err": post_err,
-            "ms": _kernel_ms(AK.affine_post, (nn, inv, S1, S2, code), post_bytes),
-            "eager_ms": _median_ms(lambda: AK.affine_post(nn, inv, S1, S2, code), 10),
-            "plain_ms": _median_ms(lambda: _chunked(AK.affine_post_plain, n, nn, inv, P1, P2, code), 3),
-            "ops_ms": _imad_ms(n * 3 * 2 * (2 * 144 + 12)), "bytes": post_bytes,
+            "ms": _kernel_ms(AK.affine_post, (nn, ninv, S1, S2, code), post_bytes),
+            "eager_ms": _median_ms(lambda: AK.affine_post(nn, ninv, S1, S2, code), 10),
+            "plain_ms": _median_ms(lambda: _chunked(AK.affine_post_plain, n, nn, ninv, P1, P2, code), 3),
+            "ops_ms": _imad_ms(post_products * FQ_IMAD), "bytes": post_bytes,
         },
     }
+
+
+def affine_kernel_phase(params, dev, card: str) -> dict:
+    """Both groups' affine_pre and affine_post (affine_instance_phase), the
+    G1 composite affine_level at 2^19 lanes and one G2 level at b_g2's
+    level-0 width, each bit for bit against its plain level; the levels'
+    times and launches, and the root inverse's."""
+    import torch
+
+    from masp_tpu_torch.kernels import LAUNCHES, affine as AK
+    from masp_tpu_torch.ops import field as F, msm_sorted as MS
+    from masp_tpu_torch.ops.field import FQ
+
+    out = {**affine_instance_phase(1, params.h, dev, card), **affine_instance_phase(2, params.b_g2, dev, card)}
+    m = AFFINE_LEVEL_LANES
+    P1, P2 = _affine_inputs(params.h, m, dev)
+    pairs = torch.cat([P1, P2], dim=1)
+    S1, S2 = pairs[:, : P1.shape[1]], pairs[:, P1.shape[1] :]
+    _check_equal("affine_level", AK.affine_level(S1, S2), AK.affine_level_plain(P1, P2))
+    log(f"kernel affine_level: {m} lanes bit-identical to affine_level_plain (tolerance: exact); "
+        f"{_median_ms(lambda: AK.affine_level(S1, S2), 3):.3f} ms at {m} lanes (median of 3) on {card}")
+    # one G2 level at the b_g2 full part's level-0 width (32 windows x 2^14
+    # points): pre, the Fq tree over the norms, post
+    g2 = torch.as_tensor(np.tile(params.b_g2, (-(-m // params.b_g2.shape[0]), 1))[:m], device=dev)
+    g2 = torch.cat([g2[:, :96], (g2[:, 96:] == 0).all(dim=1, keepdim=True).to(torch.int32)], dim=1)
+    got = MS._affine_halve(g2)
+    _check_equal("G2 affine level", got, AK.affine_level_plain(g2[0::2], g2[1::2]))
+    before = dict(LAUNCHES)
+    MS._affine_halve(g2)
+    launches = {k: LAUNCHES[k] - before[k] for k in LAUNCHES if LAUNCHES[k] != before[k]}
+    log(f"G2 affine level: {m // 2} pairs bit-identical to affine_level_plain (tolerance: exact); "
+        f"{_median_ms(lambda: MS._affine_halve(g2), 3):.3f} ms (median of 3), launches {json.dumps(launches)} "
+        f"on {card}")
+    root = P1[8:9, :24].contiguous()
+    before = dict(LAUNCHES)
+    F.mont_inv_small(FQ, root)
+    launches = {k: LAUNCHES[k] - before[k] for k in ("mont_mul_fq", "mont_inv_fq")}
+    ms = _median_ms(lambda: F.mont_inv_small(FQ, root), 3)
+    log(f"root inverse of one affine level (G1 and G2 alike, one Fq row): launches {json.dumps(launches)}, "
+        f"{ms:.3f} ms (median of 3) on {card}")
+    return out
 
 
 def _int_mm_ms(x, w, want, nbytes):
@@ -822,6 +882,35 @@ def profile_proof(label, asm, params, rs, dev, card):
 
 # --- main ------------------------------------------------------------------------------
 
+def ptxas_report(build) -> dict:
+    """Each kernel's "registers, shared bytes, spill bytes" from ptxas's
+    report (-Xptxas -v) in its source's build log."""
+    import re
+
+    entries = {}
+    for src in build.SOURCES:
+        fn = None
+        for line in build.log_path(src).read_text().splitlines():
+            m = re.search(r"(?:Compiling entry function|Function properties for) '?([\w$]+)", line)
+            if m:
+                fn = m.group(1)
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if m and fn:
+                entries.setdefault((src, fn), {})["spill"] = max(int(m.group(1)), int(m.group(2)))
+            m = re.search(r"Used (\d+) registers", line)
+            if m and fn:
+                smem = re.search(r"(\d+) bytes smem", line)
+                entries.setdefault((src, fn), {}).update(regs=int(m.group(1)), smem=int(smem.group(1)) if smem else 0)
+    out = {}
+    for name, (src, part) in ENTRY.items():
+        found = [e for (s_, fn), e in entries.items() if s_ == src and part in fn and "regs" in e]
+        out[name] = (f"{found[0]['regs']} registers, {found[0]['smem']} B shared, {found[0].get('spill', 0)} B spill"
+                     if len(found) == 1 else None)
+        if out[name] is None:
+            log(f"  ptxas: no single entry function of {src}.cu matches {part} ({len(found)} found)")
+    return out
+
+
 def card_line() -> str:
     res = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60, check=True)
@@ -875,6 +964,7 @@ def main(argv) -> int:
     log(f"setup: parameters on the card in {time.perf_counter() - t0:.1f} s "
         f"(h {len(params.h)}, l {len(params.l)}, a {len(params.a)}, b {len(params.b_g1)})")
 
+    ptxas = ptxas_report(build)
     kern = kernel_phase(params, dev, rng, card)
     tools = tools_phase(dev, rng, card)
     if "--kernels" in argv:
@@ -891,34 +981,46 @@ def main(argv) -> int:
         if proof != oracle_proof(u, v, w, z, tau, alpha, beta, delta, r, s, asm.num_inputs):
             raise AssertionError("a proof differs from the toxic-waste oracle")
 
-    # the main path: the default configuration, the batch-affine MSM ladder
-    _, launches = prove_phase("affine", asm, params, rs, check, card, dev, PROOF_KERNELS)
-    # the projective scan ladder with the sequential reduction
-    scan_kernels = [k for k in PROOF_KERNELS if not k.startswith("affine")]
-    default, MS.AFFINE_LADDER = MS.AFFINE_LADDER, False
+    # both MSM configurations, each with the launch counts zeroed just before
+    # its timed proofs: the default (the main path) first, the projective
+    # scan ladder with the sequential reduction; then the batch-affine
+    # ladder with the wide reduction, which runs every proof kernel
+    affine_kernels = [k for k in PROOF_KERNELS if k.startswith("affine")]
+    configs = {"scan": (False, [k for k in PROOF_KERNELS if k not in affine_kernels]),
+               "affine": (True, PROOF_KERNELS)}
+    order = sorted(configs, key=lambda label: configs[label][0] != MS.AFFINE_LADDER)
+    default, launches = MS.AFFINE_LADDER, {}
     try:
-        _, scan_launches = prove_phase("scan", asm, params, rs, check, card, dev, scan_kernels)
+        for label in order:
+            MS.AFFINE_LADDER, must_launch = configs[label]
+            launches[label] = prove_phase(label, asm, params, rs, check, card, dev, must_launch)[1]
+        if "--profile" in argv:
+            for label in order:
+                MS.AFFINE_LADDER = configs[label][0]
+                profile_proof(label, asm, params, rs[1], dev, card)
     finally:
         MS.AFFINE_LADDER = default
-    if scan_launches["affine_pre"] or scan_launches["affine_post"]:
+    if any(launches["scan"][k] for k in affine_kernels):
         raise AssertionError("[scan] the scan ladder launched the affine kernels")
-    if "--profile" in argv:
-        profile_proof("affine", asm, params, rs[1], dev, card)
-        MS.AFFINE_LADDER = False
-        try:
-            profile_proof("scan", asm, params, rs[1], dev, card)
-        finally:
-            MS.AFFINE_LADDER = default
 
-    # launches: the proof kernels' from the affine proofs, the tool kernels'
-    # from the tools' run. "ms" is per launch inside a CUDA graph with inputs
-    # from HBM; "eager_ms" is CUDA events around one eager call, the host's
-    # launch included
+    def path_launches(name):
+        """Launches on the path that runs the kernel: the affine kernels'
+        in the affine configuration's proofs, the other proof kernels' in
+        the main path's (0 for the Fr inversion, which no path runs)."""
+        return launches["affine" if name in affine_kernels else order[0]][name]
+
+    # "ms" is per launch inside a CUDA graph with inputs from HBM; "eager_ms"
+    # is CUDA events around one eager call, the host's launch included;
+    # "bytes" and "ops_ms" are the two sides of the bound; "launches_by_path"
+    # holds each configuration's launches over its timed proofs
     line = {"kernels": [{
         "name": name, "route": "cuda", "source": SOURCE[name], "replaces": REPLACES[name],
-        "launches": k.get("launches", launches[name]), "max_abs_err": k["max_abs_err"], "ms": k["ms"],
+        "launches": k["launches"] if name in TOOL_KERNELS else path_launches(name),
+        "launches_by_path": None if name in TOOL_KERNELS else {label: launches[label][name] for label in order},
+        "max_abs_err": k["max_abs_err"], "ms": k["ms"],
         "eager_ms": k["eager_ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
-        "bound_by": k["bound_by"], "library_ms": k.get("library_ms")} for name, k in {**kern, **tools}.items()]}
+        "bound_by": k["bound_by"], "library_ms": k.get("library_ms"), "bytes": k["bytes"],
+        "ops_ms": k["ops_ms"], "ptxas": ptxas[name]} for name, k in {**kern, **tools}.items()]}
     print(json.dumps(line))
     print(card)
     # the run used one card, whatever the machine holds

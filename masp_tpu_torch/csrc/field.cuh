@@ -7,6 +7,11 @@
 // limb. Every result is fully reduced (< N); products use CIOS with 64-bit
 // partial products. add/sub assume canonical inputs, as the curve formulas
 // always pass.
+//
+// The coordinate elements of the curve kernels are FqE (G1) and Fq2E =
+// Fq[u]/(u^2 + 1) (G2, c0 then c1 at a 24-limb offset), with one set of
+// overloads (mul, add, sub, neg, eq, sel, load/store, lds/sts), so that a
+// kernel template over the element serves both groups.
 #pragma once
 
 #include <cstdint>
@@ -19,6 +24,10 @@ static __constant__ uint32_t FQ_N[12] = {
     0xffffaaabu, 0xb9feffffu, 0xb153ffffu, 0x1eabfffeu,
     0xf6b0f624u, 0x6730d2a0u, 0xf38512bfu, 0x64774b84u,
     0x434bacd7u, 0x4b1ba7b6u, 0x397fe69au, 0x1a0111eau};
+// R mod r: the Montgomery form of 1 in Fr
+static __constant__ uint32_t FR_ONE[8] = {
+    0xfffffffeu, 0x00000001u, 0x00034802u, 0x5884b7fau,
+    0xecbc4ff5u, 0x998c4fefu, 0xacc5056fu, 0x1824b159u};
 // R mod q: the Montgomery form of 1 in Fq
 static __constant__ uint32_t FQ_ONE[12] = {
     0x0002fffdu, 0x76090000u, 0xc40c0002u, 0xebf4000bu,
@@ -29,12 +38,14 @@ struct Fr {
   static constexpr int W = 8;
   static constexpr uint32_t NINV = 0xffffffffu;  // -N^-1 mod 2^32
   __device__ __forceinline__ static uint32_t mod(int i) { return FR_N[i]; }
+  __device__ __forceinline__ static uint32_t one(int i) { return FR_ONE[i]; }
 };
 
 struct Fq {
   static constexpr int W = 12;
   static constexpr uint32_t NINV = 0xfffcfffdu;  // -N^-1 mod 2^32
   __device__ __forceinline__ static uint32_t mod(int i) { return FQ_N[i]; }
+  __device__ __forceinline__ static uint32_t one(int i) { return FQ_ONE[i]; }
 };
 
 template <class F>
@@ -144,4 +155,126 @@ __device__ __forceinline__ void fe_mul(Fe<F>& r, const Fe<F>& a, const Fe<F>& b)
     t[W] = t[W + 1] + (uint32_t)(x >> 32);
   }
   reduce_once<F>(r, t, t[W]);
+}
+
+// --- coordinate elements: Fq (G1) and Fq2 (G2) -----------------------------------
+
+using FqE = Fe<Fq>;
+
+struct Fq2E {
+  FqE c0, c1;
+};
+
+__device__ __forceinline__ void mul(FqE& r, const FqE& a, const FqE& b) { fe_mul(r, a, b); }
+__device__ __forceinline__ void add(FqE& r, const FqE& a, const FqE& b) { fe_add(r, a, b); }
+__device__ __forceinline__ void sub(FqE& r, const FqE& a, const FqE& b) { fe_sub(r, a, b); }
+
+// Karatsuba: c0 = a0 b0 - a1 b1, c1 = (a0 + a1)(b0 + b1) - a0 b0 - a1 b1
+__device__ __forceinline__ void mul(Fq2E& r, const Fq2E& a, const Fq2E& b) {
+  FqE v0, v1, sa, sb, s;
+  fe_mul(v0, a.c0, b.c0);
+  fe_mul(v1, a.c1, b.c1);
+  fe_add(sa, a.c0, a.c1);
+  fe_add(sb, b.c0, b.c1);
+  fe_mul(s, sa, sb);
+  fe_sub(r.c0, v0, v1);
+  fe_sub(s, s, v0);
+  fe_sub(r.c1, s, v1);
+}
+
+__device__ __forceinline__ void add(Fq2E& r, const Fq2E& a, const Fq2E& b) {
+  fe_add(r.c0, a.c0, b.c0);
+  fe_add(r.c1, a.c1, b.c1);
+}
+
+__device__ __forceinline__ void sub(Fq2E& r, const Fq2E& a, const Fq2E& b) {
+  fe_sub(r.c0, a.c0, b.c0);
+  fe_sub(r.c1, a.c1, b.c1);
+}
+
+// -a mod q (per coefficient)
+__device__ __forceinline__ void neg(FqE& r, const FqE& a) {
+  FqE zero;
+#pragma unroll
+  for (int j = 0; j < Fq::W; j++) zero.w[j] = 0u;
+  fe_sub(r, zero, a);
+}
+
+__device__ __forceinline__ void neg(Fq2E& r, const Fq2E& a) {
+  neg(r.c0, a.c0);
+  neg(r.c1, a.c1);
+}
+
+__device__ __forceinline__ bool eq(const FqE& a, const FqE& b) {
+  uint32_t diff = 0;
+#pragma unroll
+  for (int j = 0; j < Fq::W; j++) diff |= a.w[j] ^ b.w[j];
+  return diff == 0;
+}
+
+__device__ __forceinline__ bool eq(const Fq2E& a, const Fq2E& b) {
+  return eq(a.c0, b.c0) && eq(a.c1, b.c1);
+}
+
+// r = m ? a : b
+__device__ __forceinline__ void sel(FqE& r, bool m, const FqE& a, const FqE& b) {
+#pragma unroll
+  for (int j = 0; j < Fq::W; j++) r.w[j] = m ? a.w[j] : b.w[j];
+}
+
+__device__ __forceinline__ void sel(Fq2E& r, bool m, const Fq2E& a, const Fq2E& b) {
+  sel(r.c0, m, a.c0, b.c0);
+  sel(r.c1, m, a.c1, b.c1);
+}
+
+__device__ __forceinline__ void load(Fq2E& r, const int32_t* p) {
+  load(r.c0, p);
+  load(r.c1, p + 24);
+}
+
+__device__ __forceinline__ void store(int32_t* p, const Fq2E& a) {
+  store(p, a.c0);
+  store(p + 24, a.c1);
+}
+
+// mont-1 where m, else 0 (on Fq2 the real part)
+__device__ __forceinline__ void mont_one_or_zero(FqE& r, bool m) {
+#pragma unroll
+  for (int j = 0; j < Fq::W; j++) r.w[j] = m ? FQ_ONE[j] : 0u;
+}
+
+__device__ __forceinline__ void mont_one_or_zero(Fq2E& r, bool m) {
+  mont_one_or_zero(r.c0, m);
+  mont_one_or_zero(r.c1, false);
+}
+
+__device__ __forceinline__ void keep_or_zero(FqE& r, const FqE& a, bool m) {
+#pragma unroll
+  for (int j = 0; j < Fq::W; j++) r.w[j] = m ? a.w[j] : 0u;
+}
+
+__device__ __forceinline__ void keep_or_zero(Fq2E& r, const Fq2E& a, bool m) {
+  keep_or_zero(r.c0, a.c0, m);
+  keep_or_zero(r.c1, a.c1, m);
+}
+
+// elements as packed 32-bit words in shared memory (c1 follows c0)
+__device__ __forceinline__ void lds(FqE& r, const uint32_t* s) {
+#pragma unroll
+  for (int j = 0; j < Fq::W; j++) r.w[j] = s[j];
+}
+
+__device__ __forceinline__ void lds(Fq2E& r, const uint32_t* s) {
+  lds(r.c0, s);
+  lds(r.c1, s + Fq::W);
+}
+
+__device__ __forceinline__ void sts(uint32_t* s, const FqE& a) {
+#pragma unroll
+  for (int j = 0; j < Fq::W; j++) s[j] = a.w[j];
+}
+
+__device__ __forceinline__ void sts(uint32_t* s, const Fq2E& a) {
+  sts(s, a.c0);
+  sts(s + Fq::W, a.c1);
 }

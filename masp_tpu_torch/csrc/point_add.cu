@@ -27,17 +27,7 @@
 
 #include "field.cuh"
 
-using FqE = Fe<Fq>;
-
-struct Fq2E {
-  FqE c0, c1;
-};
-
-// --- per-coordinate-field operations -------------------------------------------
-
-__device__ __forceinline__ void mul(FqE& r, const FqE& a, const FqE& b) { fe_mul(r, a, b); }
-__device__ __forceinline__ void add(FqE& r, const FqE& a, const FqE& b) { fe_add(r, a, b); }
-__device__ __forceinline__ void sub(FqE& r, const FqE& a, const FqE& b) { fe_sub(r, a, b); }
+// --- the curve constant b3 and the leaf identity mask -------------------------------
 
 __device__ __forceinline__ void times12(FqE& r, const FqE& a) {
   FqE t;
@@ -49,29 +39,6 @@ __device__ __forceinline__ void times12(FqE& r, const FqE& a) {
 
 __device__ __forceinline__ void b3(FqE& r, const FqE& a) { times12(r, a); }
 
-// Karatsuba: c0 = a0 b0 - a1 b1, c1 = (a0 + a1)(b0 + b1) - a0 b0 - a1 b1
-__device__ __forceinline__ void mul(Fq2E& r, const Fq2E& a, const Fq2E& b) {
-  FqE v0, v1, sa, sb, s;
-  fe_mul(v0, a.c0, b.c0);
-  fe_mul(v1, a.c1, b.c1);
-  fe_add(sa, a.c0, a.c1);
-  fe_add(sb, b.c0, b.c1);
-  fe_mul(s, sa, sb);
-  fe_sub(r.c0, v0, v1);
-  fe_sub(s, s, v0);
-  fe_sub(r.c1, s, v1);
-}
-
-__device__ __forceinline__ void add(Fq2E& r, const Fq2E& a, const Fq2E& b) {
-  fe_add(r.c0, a.c0, b.c0);
-  fe_add(r.c1, a.c1, b.c1);
-}
-
-__device__ __forceinline__ void sub(Fq2E& r, const Fq2E& a, const Fq2E& b) {
-  fe_sub(r.c0, a.c0, b.c0);
-  fe_sub(r.c1, a.c1, b.c1);
-}
-
 // * 12(1 + u): scale by 12, then (c0 - c1) + (c0 + c1) u
 __device__ __forceinline__ void b3(Fq2E& r, const Fq2E& a) {
   FqE t0, t1;
@@ -81,40 +48,10 @@ __device__ __forceinline__ void b3(Fq2E& r, const Fq2E& a) {
   fe_add(r.c1, t0, t1);
 }
 
-__device__ __forceinline__ void load(Fq2E& r, const int32_t* p) {
-  load(r.c0, p);
-  load(r.c1, p + 24);
-}
-
-__device__ __forceinline__ void store(int32_t* p, const Fq2E& a) {
-  store(p, a.c0);
-  store(p + 24, a.c1);
-}
-
 // identity mask of a leaf operand: Z's first 16-bit limb != 0 (mont-1 has
 // limb 0 = 0xfffd; on G2 it is c0's limb)
 __device__ __forceinline__ bool live(const FqE& z) { return (z.w[0] & 0xffffu) != 0; }
 __device__ __forceinline__ bool live(const Fq2E& z) { return live(z.c0); }
-
-__device__ __forceinline__ void mont_one_or_zero(FqE& r, bool m) {
-#pragma unroll
-  for (int j = 0; j < Fq::W; j++) r.w[j] = m ? FQ_ONE[j] : 0u;
-}
-
-__device__ __forceinline__ void mont_one_or_zero(Fq2E& r, bool m) {
-  mont_one_or_zero(r.c0, m);
-  mont_one_or_zero(r.c1, false);
-}
-
-__device__ __forceinline__ void keep_or_zero(FqE& r, const FqE& a, bool m) {
-#pragma unroll
-  for (int j = 0; j < Fq::W; j++) r.w[j] = m ? a.w[j] : 0u;
-}
-
-__device__ __forceinline__ void keep_or_zero(Fq2E& r, const Fq2E& a, bool m) {
-  keep_or_zero(r.c0, a.c0, m);
-  keep_or_zero(r.c1, a.c1, m);
-}
 
 // --- the formulas ------------------------------------------------------------
 
@@ -266,21 +203,6 @@ struct GroupAdd {
   static_assert(BLOCK % TPP == 0, "a block holds whole pairs");
 };
 
-__device__ __forceinline__ void lds(FqE& r, const uint32_t* s) {
-#pragma unroll
-  for (int j = 0; j < Fq::W; j++) r.w[j] = s[j];
-}
-
-__device__ __forceinline__ void sts(uint32_t* s, const FqE& a) {
-#pragma unroll
-  for (int j = 0; j < Fq::W; j++) s[j] = a.w[j];
-}
-
-__device__ __forceinline__ void sts(uint32_t* s, const Fq2E& a) {
-  sts(s, a.c0);
-  sts(s + Fq::W, a.c1);
-}
-
 // the value at slot k of a staging area, zero when k == zero
 __device__ __forceinline__ void lds_slot(FqE& r, const uint32_t* s, int k, int zero) {
   const uint32_t m = k == zero ? 0u : ~0u;
@@ -299,22 +221,12 @@ __device__ __forceinline__ void lds_slot(Fq2E& r, const uint32_t* s, int k, int 
   }
 }
 
-__device__ __forceinline__ void pick(FqE& r, const FqE& a, const FqE& b, bool m) {
-#pragma unroll
-  for (int j = 0; j < Fq::W; j++) r.w[j] = m ? a.w[j] : b.w[j];
-}
-
-__device__ __forceinline__ void pick(Fq2E& r, const Fq2E& a, const Fq2E& b, bool m) {
-  pick(r.c0, a.c0, b.c0, m);
-  pick(r.c1, a.c1, b.c1, m);
-}
-
 // r = a + s b with s = +-1
 __device__ __forceinline__ void add_signed(FqE& r, const FqE& a, const FqE& b, int s) {
   FqE x, y;
   fe_add(x, a, b);
   fe_sub(y, a, b);
-  pick(r, y, x, s < 0);
+  sel(r, s < 0, y, x);
 }
 
 __device__ __forceinline__ void add_signed(Fq2E& r, const Fq2E& a, const Fq2E& b, int s) {
@@ -381,7 +293,7 @@ group_add_kernel(const int32_t* __restrict__ p, long long p_stride,
     lds_slot(y, B, ADD_LIN[j][5], 6);
     sub(x, x, y);
     b3(y, x);
-    pick(x, y, x, ADD_LIN[j][2] != 0);
+    sel(x, ADD_LIN[j][2] != 0, y, x);
     lds_slot(z, B, ADD_LIN[j][0], 6);
     add_signed(y, z, x, ADD_LIN[j][1]);
     sts(A + j * WORDS, y);

@@ -3,9 +3,10 @@
 Port of masp_tpu/groth16/prover.py in its accelerator configuration: window
 c = 8, unsigned digits extracted on the device from the witness limbs, the
 boolean split of the l/a/b queries, the on-device a/b/c evaluation, and the
-sorted MSM on the batch-affine ladder with the wide bucket reduction
-(``ops.msm_sorted.AFFINE_LADDER``; set it False for the projective scan
-ladder with the sequential reduction). Everything is enqueued on the
+sorted MSM on the projective scan ladder with the sequential bucket
+reduction (``ops.msm_sorted.AFFINE_LADDER``; set it True for the reference
+accelerator's batch-affine ladder with the wide reduction, which the H100
+runs slower). Everything is enqueued on the
 current CUDA stream; the five query results are made affine on the device
 and fetched once, then the proof is assembled on the host.
 

@@ -15,6 +15,7 @@ import torch
 LAUNCHES = {
     "mont_mul_fr": 0,
     "mont_mul_fq": 0,
+    "mont_inv_fr": 0,
     "mont_inv_fq": 0,
     "g1_add": 0,
     "g2_add": 0,
@@ -22,6 +23,8 @@ LAUNCHES = {
     "g2_add01": 0,
     "affine_pre": 0,
     "affine_post": 0,
+    "affine_pre_g2": 0,
+    "affine_post_g2": 0,
     "int8_dot": 0,
     "int8_dot_loop": 0,
     "mont_mul_mxu": 0,

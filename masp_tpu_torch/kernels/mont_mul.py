@@ -1,5 +1,5 @@
 """Montgomery multiplication a*b*R^-1 mod N for Fr (L=16) and Fq (L=24),
-and the Fq Fermat inversion a^(q-2) in one launch.
+and the Fermat inversion a^(N-2) of either field in one launch.
 
 Replaces the Pallas kernel ``_mont_mul_kernel`` of
 masp_tpu/kernels/field_kernels.py (called through ``pallas_mont_mul``), and
@@ -159,8 +159,8 @@ def mont_mul(spec, a, b):
 
 
 @functools.cache
-def _c_inv():
-    fn = library("mont_mul").masp_mont_inv_fq
+def _c_inv(name: str):
+    fn = getattr(library("mont_mul"), {"Fr": "masp_mont_inv_fr", "Fq": "masp_mont_inv_fq"}[name])
     fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_longlong, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -168,17 +168,15 @@ def _c_inv():
 
 def mont_inv(spec, a):
     """a^(N-2) (the inverse, 0 for 0) on (n, L) int32 Montgomery rows of
-    canonical values. A CPU tensor runs the plain version; a CUDA tensor
-    launches the Fq kernel (one thread per row walks the whole chain) or
-    raises: Fr has no inversion kernel."""
+    canonical values, Fr or Fq. A CPU tensor runs the plain version; a CUDA
+    tensor launches the kernel (one thread per row walks the whole chain) or
+    raises."""
     if a.dtype != torch.int32 or a.dim() != 2 or a.shape[1] != spec.L:
         raise ValueError(f"mont_inv takes (n, {spec.L}) int32 rows, got {a.dtype} {tuple(a.shape)}")
     if a.device.type == "cpu":
         return mont_inv_plain(spec, a)
     if a.device.type != "cuda":
         raise ValueError(f"unsupported device {a.device}")
-    if spec.name != "Fq":
-        raise ValueError(f"mont_inv has a kernel for Fq only, not {spec.name}")
     if not a.is_contiguous():
         raise ValueError("mont_inv takes a contiguous tensor")
     out = torch.empty_like(a)
@@ -186,10 +184,10 @@ def mont_inv(spec, a):
         return out
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _c_inv()(a.data_ptr(), out.data_ptr(), a.shape[0], stream)
+        err = _c_inv(spec.name)(a.data_ptr(), out.data_ptr(), a.shape[0], stream)
     if err != 0:
         raise RuntimeError(f"mont_inv kernel launch failed: CUDA error {err}")
-    count_launch("mont_inv_fq")
+    count_launch("mont_inv_" + spec.name.lower())
     return out
 
 

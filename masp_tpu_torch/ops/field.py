@@ -137,10 +137,10 @@ def mont_inv(spec: FieldSpec, a):
 
 def mont_inv_small(spec: FieldSpec, a):
     """Fermat inversion in 4-bit fixed windows (489 dependent products for
-    Fq instead of ~760), bit-identical to mont_inv; 0 maps to 0. Runs the
-    inversion kernel's wrapper (kernels/mont_mul.mont_inv): one launch for
-    the whole chain on a CUDA tensor, its plain chain on a CPU one. The
-    kernel is built for Fq only: a CUDA tensor of Fr raises."""
+    Fq instead of ~760, 329 for Fr), bit-identical to mont_inv; 0 maps to 0.
+    Runs the inversion kernel's wrapper (kernels/mont_mul.mont_inv): one
+    launch for the whole chain on a CUDA tensor, its plain chain on a CPU
+    one."""
     rows = a.reshape(-1, spec.L).to(torch.int32).contiguous()
     return MK.mont_inv(spec, rows).reshape(a.shape)
 
@@ -149,9 +149,9 @@ def tree_batch_inv(spec: FieldSpec, d, mul=None, root_inv=None):
     """Exact batched inversion of w non-zero elements along axis 0, w a
     power of two: a product tree over contiguous halves (p[:h] * p[h:],
     w - 1 products in log2(w) launches), ``root_inv`` on the (1, ...) root
-    (by default mont_inv_small: Fq only on a CUDA tensor), and the seeded
+    (by default mont_inv_small), and the seeded
     down-sweep (2 (w - 1) products). ``mul`` defaults to mont_mul; the plain
-    versions pass the plain product and root inverse, Fq2 passes its own.
+    versions pass the plain product and root inverse.
     The inverse of a non-zero element is unique and fully reduced, so any
     tree shape gives the same limbs."""
     w = d.shape[0]
@@ -174,8 +174,8 @@ def tree_batch_inv(spec: FieldSpec, d, mul=None, root_inv=None):
 def batch_mont_inv(spec: FieldSpec, a):
     """Batch inversion over the leading axis of any length: zeros become
     ones and the batch is padded with ones to a power of two for
-    tree_batch_inv (one inversion kernel launch on the root: Fq only on a
-    CUDA tensor). Zero elements map to zero."""
+    tree_batch_inv (one inversion kernel launch on the root). Zero elements
+    map to zero."""
     n = a.shape[0]
     one = one_like(spec, a)
     iz = is_zero(a)

@@ -1,5 +1,5 @@
-"""Sorted-prefix Pippenger MSM: the batch-affine ladder (the default) and
-the projective scan ladder.
+"""Sorted-prefix Pippenger MSM: the projective scan ladder (the default) and
+the batch-affine ladder.
 
 Port of masp_tpu/ops/msm_sorted.py as the prover runs it (``window_buckets``
 and its flat form ``window_buckets_flat``, ``bucket_reduce_horner`` in its
@@ -10,7 +10,7 @@ Per c-bit window:
    as jax.lax.sort_key_val does, so the bucket limbs match the reference);
 2. gather the points into sorted order as packed rows;
 3. build a dyadic prefix tree over the sorted points with a halving ladder:
-   with ``AFFINE_LADDER`` (the JAX package's accelerator default), the
+   with ``AFFINE_LADDER`` (the JAX package's accelerator default, off here), the
    lowest ``AFFINE_LEVELS`` levels as batch-affine adds over all windows at
    once (one batched inversion per level) and the levels above as
    projective adds; without it, projective adds throughout (the leaf level
@@ -234,9 +234,10 @@ def masked_sum(fops, points_packed, bits):
 # (product tree, ~3 products per lane, and one Fermat chain on the root):
 # slope and x3/y3 cost 4 products per add on G1 against 12 for the complete
 # projective add, with branch-free lanes for doubling, P + (-P) and the
-# identity. Level l holds N/2^l of the adds, so the savings halve per level
-# while the root's Fermat chain stays; the levels above AFFINE_LEVELS are
-# projective. Precondition: the rows are encoded affine points or identity
+# identity. G2 inverts the norms of its Fq2 denominators, so one Fq product
+# tree serves both groups (kernels/affine.py). Level l holds N/2^l of the
+# adds, so the savings halve per level while the root's Fermat chain stays;
+# the levels above AFFINE_LEVELS are projective. Precondition: the rows are encoded affine points or identity
 # pads (Z in {0, mont-1}), as the parameter queries are.
 #
 # Storage stays in natural sorted order at every level: level l + 1 pairs
@@ -245,7 +246,12 @@ def masked_sum(fops, points_packed, bits):
 # bit-reversed (_sigma, _node_pos, _fold_halves*) so that its (L, B1, 128)
 # TPU tiles fold contiguously; node j of level l is the same canonical
 # affine sum in either storage, so the buckets come out with the same limbs.
-AFFINE_LADDER = True
+#
+# Off by default: on the H100 a Spend-shaped proof takes longer on this
+# ladder than on the scan ladder, paced by the host's launches of the
+# product trees' Montgomery products and by one dependent Fermat chain a
+# level (PERF.md, sections 5 and 6).
+AFFINE_LADDER = False
 AFFINE_LEVELS = 4
 
 
@@ -265,98 +271,13 @@ def _affine_on(fops) -> bool:
     return bool(AFFINE_LADDER) and getattr(fops, "GROUP", None) in (1, 2)
 
 
-def _coord_eq(fops, a, b):
-    return (a == b).flatten(start_dim=a.dim() - len(fops.coord_shape)).all(dim=-1)
-
-
-def _coord_sel(fops, cond, a, b):
-    c = cond.reshape(cond.shape + (1,) * len(fops.coord_shape))
-    return torch.where(c != 0, a, b)
-
-
-def _coord_neg(fops, y):
-    # per-coefficient negation mod q covers Fq (..., L) and Fq2 (..., 2, L)
-    return F.neg(FQ, y)
-
-
-def _root_inv(fops, r):
-    """Inverse of the (1, ...) product-tree root by the Fermat chain, one
-    launch of the inversion kernel on a CUDA tensor (F.mont_inv_small); on
-    Fq2 one Fq inversion of the norm: 1/(r0 + r1 u) =
-    (r0 - r1 u) / (r0^2 + r1^2)."""
-    if len(fops.coord_shape) == 1:
-        return F.mont_inv_small(FQ, r)
-    r0, r1 = r[..., 0, :], r[..., 1, :]
-    norm = F.add(FQ, F.mont_mul(FQ, r0, r0), F.mont_mul(FQ, r1, r1))
-    ni = F.mont_inv_small(FQ, norm)
-    return torch.stack([F.mont_mul(FQ, r0, ni), F.neg(FQ, F.mont_mul(FQ, r1, ni))], dim=-2)
-
-
-def _tree_batch_inv(fops, d):
-    """Exact batched inversion of (w, ...) non-zero elements, w a power of
-    two (ValueError otherwise): F.tree_batch_inv, which every affine level
-    inverts its denominators with, over fops' product and root inverse."""
-    return F.tree_batch_inv(FQ, d, fops.mul, lambda r: _root_inv(fops, r))
-
-
-def _affine_level(fops, p1, p2):
-    """The G2 affine level: one ladder level of batch-affine additions
-    composed from fops' operations (Fq2 products through the Fq kernel), as
-    the reference runs G2, whose kernels take one coordinate axis. G1 runs
-    the same formula in kernels/affine.py. p* = (x, y, f) with f != 0
-    marking the identity and finite coordinates canonical. Branch-free:
-    chord add, tangent doubling (x1 == x2, y1 == y2), P + (-P) -> identity,
-    identity pass-throughs; one batched inversion. Identity results come
-    out (0, mont-1) with f = 1."""
-    x1, y1, f1 = p1
-    x2, y2, f2 = p2
-    mul, add, sub = fops.mul, fops.add, fops.sub
-    one = fops.one_like(x1)
-    i1, i2 = f1 != 0, f2 != 0
-    fin = ~i1 & ~i2
-    xeq = _coord_eq(fops, x1, x2)
-    yneg = _coord_eq(fops, y1, _coord_neg(fops, y2))
-    res_inf = fin & xeq & yneg
-    use_dbl = fin & xeq & ~yneg
-    sq1 = mul(x1, x1)
-    n_eff = _coord_sel(fops, use_dbl, add(add(sq1, sq1), sq1), sub(y2, y1))
-    live = fin & ~res_inf
-    d_eff = _coord_sel(fops, use_dbl, add(y1, y1), sub(x2, x1))
-    d_eff = _coord_sel(fops, live, d_eff, one)
-    lam = mul(n_eff, _tree_batch_inv(fops, d_eff))
-    x3 = sub(sub(mul(lam, lam), x1), x2)
-    y3 = sub(mul(lam, sub(x1, x3)), y1)
-    xo = _coord_sel(fops, i1, x2, _coord_sel(fops, i2, x1, x3))
-    yo = _coord_sel(fops, i1, y2, _coord_sel(fops, i2, y1, y3))
-    fo = ((i1 & i2) | res_inf).to(torch.int32)
-    xo = _coord_sel(fops, fo, fops.zeros_like(xo), xo)
-    yo = _coord_sel(fops, fo, one, yo)
-    return xo, yo, fo
-
-
-def _aff_coords(fops, rows):
-    """(n, 2k+1) affine rows -> (x, y, f) with fops' coordinate shape."""
-    k = rows.shape[-1] // 2
-    shape = rows.shape[:-1] + tuple(fops.coord_shape)
-    return rows[:, :k].reshape(shape), rows[:, k : 2 * k].reshape(shape), rows[:, 2 * k]
-
-
-def _aff_rows(x, y, f):
-    n = x.shape[0]
-    return torch.cat([x.reshape(n, -1), y.reshape(n, -1), f.to(torch.int32)[:, None]], dim=1)
-
-
-def _affine_halve(fops, rows):
+def _affine_halve(rows):
     """One affine ladder level: (n, 2k+1) rows -> sums of adjacent pairs
-    (n/2, 2k+1), one batched inversion over all of them. G1 runs the affine
-    kernels; G2 composes the level from Fq2 operations, as the reference
-    does (its kernels take one coordinate axis)."""
+    (n/2, 2k+1), one batched inversion over all of them, through the affine
+    kernels on G1 and G2 alike."""
     r = rows.shape[-1]
     pairs = rows.reshape(-1, 2 * r)
-    p1, p2 = pairs[:, :r], pairs[:, r:]
-    if fops.GROUP == 1:
-        return AK.affine_level(p1, p2)
-    return _aff_rows(*_affine_level(fops, _aff_coords(fops, p1), _aff_coords(fops, p2)))
+    return AK.affine_level(pairs[:, :r], pairs[:, r:])
 
 
 def _lift(fops, rows):
@@ -391,7 +312,7 @@ def window_buckets_flat(fops, points_packed, digits, c: int):
     cur = src[perm.reshape(-1)]  # (W*N, 2k+1)
     aff = [cur]
     for _ in range(K):
-        cur = _affine_halve(fops, cur)
+        cur = _affine_halve(cur)
         aff.append(cur)
     curp = _lift(fops, cur)
     proj = {K: curp}

@@ -18,9 +18,10 @@ launch. Sections:
      (and k = 4096 and 32768, which the card's event timer resolves);
   5. the sorted MSM of 2^17 copies of one point (``sorted_msm_from_limbs``,
      unsigned digits) for c in {8, 10, 12, 13}, checked against the host.
-     c = 10, 12 and 13 give 26, 22 and 20 windows, which the batch-affine
-     ladder (the default) cannot take; those run the scan ladder, named on
-     their line.
+     Each c runs the batch-affine ladder, as the JAX tool does on its
+     accelerator, where the window count allows: c = 10, 12 and 13 give 26,
+     22 and 20 windows, which that ladder cannot take; those run the scan
+     ladder, named on their line.
 
 A wrong result or a failed launch raises: the exit status is non-zero.
 
@@ -216,7 +217,7 @@ def main(device="cuda", rows: int = 1 << 17, points: int = 1 << 17, cs=(8, 10, 1
     report["msm"] = {}
     for c in cs:
         n_windows = MS.n_windows_for(c)
-        affine = bool(MS.AFFINE_LADDER) and MS.affine_ladder_takes(n_windows, points)
+        affine = MS.affine_ladder_takes(n_windows, points)
         ladder = "affine" if affine else "scan"
         default, MS.AFFINE_LADDER = MS.AFFINE_LADDER, affine
         try:

@@ -1,8 +1,9 @@
-"""The port's batch-affine MSM ladder (kernels/affine.py; the affine
-helpers, window_buckets_flat and the wide bucket_reduce_horner of
+"""The port's batch-affine MSM ladder (kernels/affine.py, both groups; the
+affine helpers, window_buckets_flat and the wide bucket_reduce_horner of
 ops/msm_sorted.py) against the host group law, compared exactly: this is
 integer arithmetic. On CPU tensors every kernel wrapper runs its plain
-version.
+version. G2 inverts its Fq2 denominators through their norms to Fq, with the
+same Fq product tree as G1.
 
 The limb comparisons with the JAX package's _affine_level and
 window_buckets_flat run its eager or jitted compact impl for 20-30 s even at
@@ -94,23 +95,27 @@ def _level_case(grp, n, seed):
     return p1, p2, {i for i in range(n) if i % 8 == 5}
 
 
+# case codes of _level_case's lanes: bit 0 P1 = O, bit 1 P2 = O, bit 2
+# P + (-P), bit 3 doubling
+LEVEL_CODES = [8, 4, 1, 2, 3, 1, 0, 0]
+
+
 @pytest.mark.parametrize("group", [1, 2])
 def test_affine_level_matches_host(group):
-    """One affine level at 64 lanes: G1 through affine_pre_plain ->
-    _tree_batch_inv -> affine_post_plain, G2 through the composed
-    _affine_level over Fq2."""
-    grp, fops, _ = GROUPS[group]
+    """One affine level at 64 lanes through affine_pre_plain -> the Fq
+    product tree over d's norms -> affine_post_plain, on G1 and on G2, with
+    the same case code lane for lane."""
+    grp = GROUPS[group][0]
     p1, p2, decoys = _level_case(grp, 64, 40 + group)
     r1 = _aff_rows(group, p1, decoys)
     r2 = _aff_rows(group, p2, {i - 2 for i in decoys})  # lanes 3 mod 8: P + identity
     want = _aff_rows(group, [a + b for a, b in zip(p1, p2)])
-    if group == 1:
-        n, d, code = AK.affine_pre_plain(r1, r2)
-        got = AK.affine_post_plain(n, MS._tree_batch_inv(fops, d), r1, r2, code)
-        assert code.tolist() == [[0, 4, 1, 2, 3, 1, 0, 0][i % 8] for i in range(64)]
-    else:
-        got = MS._aff_rows(*MS._affine_level(fops, MS._aff_coords(fops, r1), MS._aff_coords(fops, r2)))
+    n, norm, code = AK.affine_pre_plain(r1, r2)
+    assert n.shape == (64, 24 * group) and norm.shape == (64, 24)
+    got = AK.affine_post_plain(n, F.tree_batch_inv(FQ, norm), r1, r2, code)
+    assert code.tolist() == [LEVEL_CODES[i % 8] for i in range(64)]
     assert torch.equal(got, want)
+    assert torch.equal(AK.affine_level(r1, r2), want)
 
 
 def _fq2_inv(c0, c1):
@@ -120,23 +125,28 @@ def _fq2_inv(c0, c1):
 
 @pytest.mark.parametrize("group", [1, 2])
 def test_tree_batch_inv_and_root_inv_match_host(group):
+    """The affine levels' inversion of their denominators d (Fq on G1, Fq2
+    on G2) through d's norm: the Fq product tree over 16 norms, and one
+    root's Fermat inversion, then d^-1 from the norm's inverse."""
     rng = random.Random(50 + group)
     fops = GROUPS[group][1]
     vals = [[rng.randrange(1, Q) for _ in range(group)] for _ in range(16)]
     vals[3] = [1] + [0] * (group - 1)
     vals[5] = [Q - 1] + [0] * (group - 1)
     d = torch.as_tensor(F.encode(FQ, [v for row in vals for v in row]).astype(np.int32))
-    d = d.reshape((16,) + fops.coord_shape)
+    d = d.reshape(16, group, FQ.L)
     inv = [pow(v[0], -1, Q) for v in vals] if group == 1 else [_fq2_inv(*v) for v in vals]
-    want = fops.encode(inv)
-    assert np.array_equal(MS._tree_batch_inv(fops, d).numpy(), want.astype(np.int32))
-    assert np.array_equal(MS._root_inv(fops, d[2:3]).numpy(), want[2:3].astype(np.int32))
+    want = fops.encode(inv).reshape(16, -1).astype(np.int32)
+    got = AK._inv_from_norm(d, F.tree_batch_inv(FQ, AK._norm(d)))
+    assert np.array_equal(got.reshape(16, -1).numpy(), want)
+    root = AK._inv_from_norm(d[2:3], F.mont_inv_small(FQ, AK._norm(d[2:3])))
+    assert np.array_equal(root.reshape(1, -1).numpy(), want[2:3])
 
 
 def test_non_power_of_two_lane_count_raises():
     d = torch.as_tensor(F.encode(FQ, list(range(1, 13))).astype(np.int32))
     with pytest.raises(ValueError, match="power-of-two lane count"):
-        MS._tree_batch_inv(W.G1Ops, d)
+        F.tree_batch_inv(FQ, d)
     with pytest.raises(ValueError, match="power-of-two lane count"):
         AK.affine_level_plain(*_aff_rows(1, [HG1.generator()] * 24).reshape(2, 12, -1))
     # c = 10: 26 windows of 4 points, 104 lanes
@@ -149,17 +159,24 @@ def test_non_power_of_two_lane_count_raises():
 
 def test_affine_wrappers_check_inputs():
     rows = _aff_rows(1, [HG1.generator()] * 4)
+    rows2 = _aff_rows(2, [HG2.generator()] * 4)
     with pytest.raises(ValueError):
         AK.affine_pre(rows[:, :48], rows)
     with pytest.raises(ValueError):
         AK.affine_pre(rows, rows[:3])
+    with pytest.raises(ValueError):
+        AK.affine_pre(rows, rows2)  # G1 and G2 rows
     n, d, code = AK.affine_pre(rows, rows)
     with pytest.raises(ValueError):
         AK.affine_post(n, d, rows, rows, code.to(torch.int64))
     with pytest.raises(ValueError):
         AK.affine_post(n[:3], d, rows, rows, code)
+    with pytest.raises(ValueError):
+        AK.affine_post(n, d, rows2, rows2, code)  # a G1 n for G2 rows
+    n2, d2, code2 = AK.affine_pre(rows2, rows2)
     before = dict(LAUNCHES)
     AK.affine_post(n, d, rows, rows, code)
+    AK.affine_post(n2, d2, rows2, rows2, code2)
     assert LAUNCHES == before  # the plain versions ran: no launch counted
 
 
@@ -167,17 +184,19 @@ def test_affine_wrappers_check_inputs():
 def test_affine_kernels_match_plain():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    p1, p2, decoys = _level_case(HG1, 256, 90)
-    r1, r2 = _aff_rows(1, p1, decoys).cuda(), _aff_rows(1, p2).cuda()
-    pairs = torch.cat([r1, r2], dim=1)  # strided operands, as the ladder passes them
-    a, b = pairs[:, : AK.ROW], pairs[:, AK.ROW :]
-    pre = AK.affine_pre(a, b)
-    for got, want in zip(pre, AK.affine_pre_plain(r1, r2)):
-        assert torch.equal(got, want)
-    inv = MS._tree_batch_inv(W.G1Ops, pre[1])
-    assert torch.equal(AK.affine_post(pre[0], inv, a, b, pre[2]),
-                       AK.affine_post_plain(pre[0], inv, r1, r2, pre[2]))
-    assert torch.equal(AK.affine_level(a, b), AK.affine_level_plain(r1, r2))
+    for group in (1, 2):
+        p1, p2, decoys = _level_case(GROUPS[group][0], 256, 90)
+        r1, r2 = _aff_rows(group, p1, decoys).cuda(), _aff_rows(group, p2).cuda()
+        pairs = torch.cat([r1, r2], dim=1)  # strided operands, as the ladder passes them
+        row = r1.shape[1]
+        a, b = pairs[:, :row], pairs[:, row:]
+        pre = AK.affine_pre(a, b)
+        for got, want in zip(pre, AK.affine_pre_plain(r1, r2)):
+            assert torch.equal(got, want)
+        inv = F.tree_batch_inv(FQ, pre[1])
+        assert torch.equal(AK.affine_post(pre[0], inv, a, b, pre[2]),
+                           AK.affine_post_plain(pre[0], inv, r1, r2, pre[2]))
+        assert torch.equal(AK.affine_level(a, b), AK.affine_level_plain(r1, r2))
 
 
 def _msm_case(grp, n, seed):
@@ -235,17 +254,15 @@ def test_affine_level_limbs_match_jax(group):
     p1, p2, decoys = _level_case(grp, 64, 70 + group)
     r1, r2 = _aff_rows(group, p1, decoys), _aff_rows(group, p2)
 
+    k, shape = 24 * group, (64,) + tuple(fops.coord_shape)
+
     def jax_coords(rows):
-        x, y, f = MS._aff_coords(fops, rows)
+        x, y, f = rows[:, :k].reshape(shape), rows[:, k : 2 * k].reshape(shape), rows[:, 2 * k]
         return jnp.asarray(x.numpy().astype(np.uint32)), jnp.asarray(y.numpy().astype(np.uint32)), jnp.asarray(f.numpy())
 
     jx, jy, jf = MSJ._affine_level(jfops, jax_coords(r1), jax_coords(r2))
-    want = MS._aff_rows(_t(jx), _t(jy), _t(jf))
-    if group == 1:
-        got = AK.affine_level(r1, r2)
-    else:
-        got = MS._aff_rows(*MS._affine_level(fops, MS._aff_coords(fops, r1), MS._aff_coords(fops, r2)))
-    assert torch.equal(got, want)
+    want = torch.cat([_t(jx).reshape(64, -1), _t(jy).reshape(64, -1), _t(jf).reshape(64, 1)], dim=1)
+    assert torch.equal(AK.affine_level(r1, r2), want)
 
 
 @pytest.mark.slow

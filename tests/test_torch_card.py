@@ -1,0 +1,207 @@
+"""Every CUDA kernel of the port against its plain PyTorch version on the
+card, bit for bit (integer arithmetic: the tolerance is exact equality), at
+small widths (1, 3, 32, 1003) with the edge lanes first.
+
+This file imports neither jax nor masp_tpu, so it runs where only the port
+is installed; every test is marked ``cuda`` and skips without a card. Run it
+on a machine with one (the repository's tests/conftest.py imports jax, so
+skip it there):
+
+    python -m pytest --noconftest tests/test_torch_card.py -q
+
+Inputs come from the port's host curve (masp_tpu_torch.host) and numpy
+seeds. Each kernel's launch counter must rise by the launches made. One
+test runs every case and names each one that fails.
+"""
+
+import random
+
+import numpy as np
+import pytest
+import torch
+
+from masp_tpu_torch.host.bls12_381 import G1, G2
+from masp_tpu_torch.kernels import LAUNCHES
+from masp_tpu_torch.kernels import affine as AK
+from masp_tpu_torch.kernels import int8_dot as I8
+from masp_tpu_torch.kernels import mont_mul as MK
+from masp_tpu_torch.kernels import mont_mul_mxu as MX
+from masp_tpu_torch.kernels import point_add as PA
+from masp_tpu_torch.ops import field as F
+from masp_tpu_torch.ops import weierstrass as W
+from masp_tpu_torch.ops.field import FQ, FR
+
+WIDTHS = [1, 3, 32, 1003]
+SPECS = {"Fr": FR, "Fq": FQ}
+GROUPS = {1: (G1, W.encode_g1_points), 2: (G2, W.encode_g2_points)}
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _launched(name, fn, times=1):
+    """fn(), checking that it launched kernel ``name`` ``times`` times."""
+    before = LAUNCHES[name]
+    out = fn()
+    assert LAUNCHES[name] == before + times, name
+    return out
+
+
+def _field_rows(spec, width, seed, dev):
+    """(width, L) Montgomery rows: 0, 1, N - 1, 2, N - 2, then seeded values."""
+    rng = np.random.default_rng(seed)
+    words = rng.integers(0, 1 << 62, size=(width, 7), dtype=np.int64)
+    vals = [0, 1, spec.modulus - 1, 2, spec.modulus - 2]
+    vals += [int("".join(f"{int(w):016x}" for w in row), 16) % spec.modulus for row in words]
+    return torch.as_tensor(F.encode(spec, vals[:width]).astype(np.int32), device=dev)
+
+
+def check_mont_mul(dev, name, width):
+    spec = SPECS[name]
+    a = _field_rows(spec, width, 1, dev)
+    b = _field_rows(spec, width, 2, dev).flip(0).contiguous()
+    got = _launched("mont_mul_" + name.lower(), lambda: MK.mont_mul(spec, a, b))
+    assert torch.equal(got, MK.mont_mul_plain(spec, a, b))
+
+
+def check_mont_inv(dev, name, width):
+    """0 -> 0 among the rows; the plain chain and host ints agree."""
+    spec = SPECS[name]
+    a = _field_rows(spec, width, 3, dev)
+    got = _launched("mont_inv_" + name.lower(), lambda: MK.mont_inv(spec, a))
+    assert torch.equal(got, MK.mont_inv_plain(spec, a))
+    assert F.decode(spec, got) == [pow(x, spec.modulus - 2, spec.modulus) for x in F.decode(spec, a)]
+
+
+def _points(grp, n, seed):
+    """n distinct points: a seeded multiple of the generator, then a chain of
+    additions of the generator."""
+    g = grp.generator()
+    p = g * random.Random(seed).randrange(1, 1 << 64)
+    out = []
+    for _ in range(n):
+        out.append(p)
+        p = p + g
+    return out
+
+
+def _pairs(group, width, seed):
+    """(P1, P2) host points, width lanes: identity + identity, P + P,
+    P + (-P), identity + P, P + identity, then distinct chords."""
+    grp = GROUPS[group][0]
+    pts = _points(grp, 68, seed)
+    O = grp.identity()
+    p1 = [O, pts[0], pts[1], O, pts[2]] + pts[3:35]
+    p2 = [O, pts[0], -pts[1], pts[3], O] + pts[35:67]
+    reps = -(-width // len(p1))
+    return (p1 * reps)[:width], (p2 * reps)[:width]
+
+
+def _proj_rows(group, points, dev):
+    coords = GROUPS[group][1](points)
+    n = len(points)
+    return torch.as_tensor(np.concatenate([np.asarray(c).reshape(n, -1) for c in coords], axis=1).astype(np.int32),
+                           device=dev)
+
+
+def check_point_add(dev, group, leaf01, width):
+    """The complete adds on projective operands (general Z) and the leaf
+    adds on Z in {0, mont-1}, contiguous and strided (the ladder's even and
+    odd views)."""
+    p1, p2 = _pairs(group, width, 10 + group)
+    P, Q = _proj_rows(group, p1, dev), _proj_rows(group, p2, dev)
+    if not leaf01:
+        P = PA.point_add_plain(group, P, torch.roll(Q, 1, 0))
+        P[0] = Q[0]  # identity + identity stays first
+    want = PA.point_add_plain(group, P, Q, leaf01)
+    K = P.shape[1]
+    pairs = torch.cat([P, Q], dim=1)
+    name = f"g{group}_add01" if leaf01 else f"g{group}_add"
+    assert torch.equal(_launched(name, lambda: PA.point_add(group, P, Q, leaf01)), want)
+    assert torch.equal(_launched(name, lambda: PA.point_add(group, pairs[:, :K], pairs[:, K:], leaf01)), want)
+
+
+def _aff_rows(group, points, dev, decoy=None):
+    """Affine rows [x | y | f]: the identity as (0, mont-1) with f = 1, or
+    at lane ``decoy`` f = 1 over lane 2's finite coordinates."""
+    X, Y, Z = (np.asarray(c).reshape(len(points), -1) for c in GROUPS[group][1](points))
+    f = (Z == 0).all(axis=1).astype(np.int64)[:, None]
+    rows = np.concatenate([X, Y, f], axis=1)
+    if decoy is not None and decoy < len(points):
+        rows[decoy, :-1] = rows[2, :-1]
+        rows[decoy, -1] = 1
+    return torch.as_tensor(rows.astype(np.int32), device=dev)
+
+
+def check_affine_pre_post(dev, group, width):
+    """affine_pre and affine_post of G1 (49-word rows) and G2 (97), on
+    contiguous and strided operands, with a flagged lane over finite
+    coordinates; the edge lanes' codes and identity flags; the whole level
+    where the width is a power of two."""
+    p1, p2 = _pairs(group, width, 20 + group)
+    r1, r2 = _aff_rows(group, p1, dev, decoy=5), _aff_rows(group, p2, dev)
+    row = r1.shape[1]
+    pairs = torch.cat([r1, r2], dim=1)
+    s1, s2 = pairs[:, :row], pairs[:, row:]
+    suffix = "" if group == 1 else "_g2"
+    want = AK.affine_pre_plain(r1, r2)
+    for a, b in ((r1, r2), (s1, s2)):
+        got = _launched("affine_pre" + suffix, lambda: AK.affine_pre(a, b))
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+    n, norm, code = want
+    assert code[:6].tolist() == [3, 8, 4, 1, 2, 1][:width]
+    ninv = MK.mont_inv_plain(FQ, norm)
+    out = AK.affine_post_plain(n, ninv, r1, r2, code)
+    for a, b in ((r1, r2), (s1, s2)):
+        assert torch.equal(_launched("affine_post" + suffix, lambda: AK.affine_post(n, ninv, a, b, code)), out)
+    assert out[:5, -1].tolist() == [1, 0, 1, 0, 0][:width]
+    if width & (width - 1) == 0:
+        assert torch.equal(AK.affine_level(s1, s2), AK.affine_level_plain(r1, r2))
+
+
+def check_int8_dot(dev, M):
+    """(M, K) @ (K, 96) on the full signed range, K = 48 (the tools'), 37
+    (not a multiple of 4) and 64 (the most the kernel takes); the loop at
+    k = 8."""
+    rng = np.random.default_rng(30 + M)
+    for K in (48, 37, 64):
+        x = torch.as_tensor(rng.integers(-128, 128, (M, K), dtype=np.int8), device=dev)
+        w = torch.as_tensor(rng.integers(-128, 128, (K, 96), dtype=np.int8), device=dev)
+        assert torch.equal(_launched("int8_dot", lambda: I8.int8_dot(x, w)), I8.int8_dot_plain(x, w))
+        assert torch.equal(_launched("int8_dot_loop", lambda: I8.int8_dot_loop(x, w, 8)),
+                           I8.int8_dot_loop_plain(x, w, 8))
+
+
+def check_mont_mul_mxu(dev, width):
+    a = _field_rows(FQ, width, 4, dev)
+    b = _field_rows(FQ, width, 5, dev).flip(0).contiguous()
+    got = _launched("mont_mul_mxu", lambda: MX.mont_mul_mxu(FQ, a, b))
+    assert torch.equal(got, MX.mont_mul_mxu_plain(FQ, a, b))
+    assert torch.equal(got, MK.mont_mul_plain(FQ, a, b))
+
+
+CASES = (
+    [(check_mont_mul, (name, w)) for name in SPECS for w in WIDTHS]
+    + [(check_mont_inv, (name, w)) for name in SPECS for w in WIDTHS]
+    + [(check_point_add, (g, leaf, w)) for g in (1, 2) for leaf in (False, True) for w in WIDTHS]
+    + [(check_affine_pre_post, (g, w)) for g in (1, 2) for w in WIDTHS]
+    + [(check_int8_dot, (w,)) for w in WIDTHS]
+    + [(check_mont_mul_mxu, (w,)) for w in WIDTHS]
+)
+
+
+@pytest.mark.cuda
+def test_kernels_match_plain(dev):
+    """Every case above; the failures are listed together."""
+    failed = []
+    for check, args in CASES:
+        try:
+            check(dev, *args)
+        except AssertionError as e:
+            failed.append(f"{check.__name__}{args}: {e}")
+    assert not failed, "\n".join(failed)

@@ -156,6 +156,7 @@ def test_field_constants_match_cuda_source():
     assert words("FR_N") == F.FR.modulus
     assert words("FQ_N") == F.FQ.modulus
     assert words("FQ_ONE") == F.FQ.R_mod
+    assert words("FR_ONE") == F.FR.R_mod
     for struct, spec in (("Fr", F.FR), ("Fq", F.FQ)):
         ninv = re.search(r"struct " + struct + r" \{.*?NINV = (0x[0-9a-f]+)u", src, re.S).group(1)
         assert int(ninv, 16) == (-pow(spec.modulus, -1, 1 << 32)) % (1 << 32)
@@ -199,26 +200,13 @@ def test_mont_mul_kernel_matches_plain(cuda_device, name, width):
 @pytest.mark.cuda
 @pytest.mark.parametrize("width", [1, 2, 3, 32, 1003])
 def test_mont_inv_kernel_matches_plain(cuda_device, width):
-    """The inversion kernel on 0, 1, q - 1, 2, N - 2 and random rows, bit for
-    bit against its plain chain and host ints."""
-    spec = F.FQ
-    a = _t(F.encode(spec, _ints(spec.modulus, 1000, 9)[::-1][-width:])).to(cuda_device)
-    before = LAUNCHES["mont_inv_fq"]
-    got = MK.mont_inv(spec, a)
-    assert LAUNCHES["mont_inv_fq"] == before + 1
-    assert torch.equal(got, MK.mont_inv_plain(spec, a))
-    assert F.decode(spec, got) == [pow(x, spec.modulus - 2, spec.modulus) for x in F.decode(spec, a)]
-
-
-@pytest.mark.cuda
-def test_mont_inv_raises_for_fr_on_card(cuda_device):
-    """The inversion kernel is built for Fq only: on a CUDA tensor of Fr the
-    wrapper, and the routed inversions of ops/field, raise at the root and
-    launch no inversion."""
-    spec = F.FR
-    a = _t(F.encode(spec, [2, 3, 5, 7])).to(cuda_device)
-    before = LAUNCHES["mont_inv_fq"]
-    for inv in (MK.mont_inv, F.mont_inv_small, F.tree_batch_inv, F.batch_mont_inv):
-        with pytest.raises(ValueError, match="Fq only"):
-            inv(spec, a)
-    assert LAUNCHES["mont_inv_fq"] == before
+    """The inversion kernels of Fr and Fq on 0, 1, N - 1, 2, N - 2 and
+    random rows, bit for bit against their plain chains and host ints."""
+    for name, (spec, _) in SPECS.items():
+        a = _t(F.encode(spec, _ints(spec.modulus, 1000, 9)[::-1][-width:])).to(cuda_device)
+        counter = "mont_inv_" + name.lower()
+        before = LAUNCHES[counter]
+        got = MK.mont_inv(spec, a)
+        assert LAUNCHES[counter] == before + 1
+        assert torch.equal(got, MK.mont_inv_plain(spec, a))
+        assert F.decode(spec, got) == [pow(x, spec.modulus - 2, spec.modulus) for x in F.decode(spec, a)]

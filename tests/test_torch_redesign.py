@@ -1,6 +1,6 @@
-"""The CPU side of the redesigned kernels: the Fq inversion kernel's plain
-chain and its routing (kernels/mont_mul.mont_inv: every Fermat chain of the
-proof path is one launch), and the complete add's thread schedule on G1 and
+"""The CPU side of the redesigned kernels: the inversion kernel's plain
+chain for Fq and Fr and its routing (kernels/mont_mul.mont_inv: every Fermat
+chain of the proof path is one launch), and the complete add's thread schedule on G1 and
 G2 (kernels/point_add.ADD_L1 ... ADD_OUT) on host ints and in the CUDA
 source. Integer arithmetic: every comparison is exact."""
 
@@ -22,9 +22,8 @@ from masp_tpu_torch.kernels import affine as AK
 from masp_tpu_torch.kernels import mont_mul as MK
 from masp_tpu_torch.kernels import point_add as PA
 from masp_tpu_torch.ops import field as F
-from masp_tpu_torch.ops import msm_sorted as MS
 from masp_tpu_torch.ops import weierstrass as W
-from masp_tpu_torch.ops.field import FQ
+from masp_tpu_torch.ops.field import FQ, FR
 from masp_tpu_torch.ops.projective import unpack_rows
 
 CSRC = Path(__file__).resolve().parent.parent / "masp_tpu_torch" / "csrc"
@@ -91,6 +90,26 @@ def test_routed_inversions_match_jax_and_host(jax_inverses):
     assert LAUNCHES == before
 
 
+def test_fr_inversion_plain_matches_jax_and_host():
+    """The Fr instance of the inversion chain (64 nibbles of r - 2, 329
+    products): the plain chain and the routed F.mont_inv_small against
+    field_jax.mont_inv_small over Fr and host ints, 0 -> 0 included."""
+    r = FR.modulus
+    rng = np.random.default_rng(64)
+    vals = [0, 1, r - 1, 2, r - 2] + [int(x) * r // (1 << 62) for x in rng.integers(1, 1 << 62, 6)]
+    a = torch.as_tensor(F.encode(FR, vals).astype(np.int32))
+    rows = jnp.asarray(a.numpy().astype(np.uint32))
+    lowered = jax.jit(lambda x: FJ.mont_inv_small(FJ.FR, x)).lower(rows)
+    jax_inv = np.asarray(lowered.compile(compiler_options={"xla_backend_optimization_level": 0})(rows))
+    got = MK.mont_inv_plain(FR, a)
+    assert len(FR.inv_exp_nibbles) == 64
+    assert np.array_equal(got.numpy(), jax_inv.astype(np.int32))
+    assert F.decode(FR, got) == [pow(x, r - 2, r) for x in vals]
+    before = dict(LAUNCHES)
+    assert torch.equal(F.mont_inv_small(FR, a), got)
+    assert LAUNCHES == before
+
+
 def _counting_mont_inv(monkeypatch):
     calls = []
     real = MK.mont_inv
@@ -109,9 +128,16 @@ def _affine_rows(points):
     return torch.as_tensor(np.concatenate([x, y, f], axis=1).astype(np.int32))
 
 
+def _affine_rows2(points):
+    x, y, _ = W.encode_g2_points(points)
+    f = np.zeros((len(points), 1), dtype=np.uint32)
+    return torch.as_tensor(np.concatenate([x.reshape(len(points), -1), y.reshape(len(points), -1), f],
+                                          axis=1).astype(np.int32))
+
+
 def test_every_fermat_chain_is_one_inversion_call(monkeypatch):
     """The G1 affine level (which passes the field's own product to the
-    tree), the G2 root through the norm, and the fetch's batched inversions
+    tree), the G2 level through its denominators' norms, and the fetch's batched inversions
     on both groups each invert through one mont_inv call on one row, and so
     does the product tree's default root under a caller's own product."""
     calls = _counting_mont_inv(monkeypatch)
@@ -123,9 +149,11 @@ def test_every_fermat_chain_is_one_inversion_call(monkeypatch):
     assert torch.equal(got, _affine_rows([a + b for a, b in zip(p1, p2)]))
     assert torch.equal(got, AK.affine_level_plain(_affine_rows(p1), _affine_rows(p2)))
     assert calls == [(1, FQ.L)]  # the plain level runs its own chain
-    d = torch.as_tensor(W.Fq2Ops.encode([(5, 7), (1, 0)]).astype(np.int32))
-    MS._tree_batch_inv(W.G2Ops, d)
-    assert calls[1:] == [(1, FQ.L)]
+    q1 = [G2.generator() * rng.randrange(1, R) for _ in range(2)]
+    q2 = [G2.generator() * rng.randrange(1, R) for _ in range(2)]
+    got = AK.affine_level(_affine_rows2(q1), _affine_rows2(q2))
+    assert torch.equal(got, _affine_rows2([a + b for a, b in zip(q1, q2)]))
+    assert calls[1:] == [(1, FQ.L)]  # G2 inverts its Fq norms
     for fops, grp in ((W.G1Ops, G1), (W.G2Ops, G2)):
         enc = W.encode_g1_points if fops is W.G1Ops else W.encode_g2_points
         dec = W.decode_affine_g1 if fops is W.G1Ops else W.decode_affine_g2
@@ -133,7 +161,7 @@ def test_every_fermat_chain_is_one_inversion_call(monkeypatch):
         X, Y, Z = (torch.as_tensor(np.asarray(c).astype(np.int32)) for c in enc(pts))
         assert dec(*W.to_affine(fops, (X, Y, Z))) == pts
     assert calls[2:] == [(1, FQ.L), (1, FQ.L)]
-    F.tree_batch_inv(FQ, d[:, 0], lambda x, y: F.mont_mul(FQ, x, y))
+    F.tree_batch_inv(FQ, got[:, :FQ.L], lambda x, y: F.mont_mul(FQ, x, y))
     assert calls[4:] == [(1, FQ.L)]
 
 
@@ -221,6 +249,7 @@ def test_inverse_nibbles_match_cuda_source():
     src = (CSRC / "mont_mul.cu").read_text()
     assert _cuda_table(src, "FQ_INV_NIBBLES") == FQ.inv_exp_nibbles
     assert len(FQ.inv_exp_nibbles) == 96
+    assert _cuda_table(src, "FR_INV_NIBBLES") == FR.inv_exp_nibbles
 
 
 def test_redesigned_wrappers_check_inputs():
