@@ -93,8 +93,9 @@ SOURCE = {k: "masp_tpu_torch/csrc/" + src for k, src in (
 ENTRY = {
     "mont_mul_fr": ("mont_mul", "mont_mul_kernelI2Fr"), "mont_mul_fq": ("mont_mul", "mont_mul_kernelI2Fq"),
     "mont_inv_fr": ("mont_mul", "mont_inv_kernelI2Fr"), "mont_inv_fq": ("mont_mul", "mont_inv_kernelI2Fq"),
-    "g1_add": ("point_add", "group_add_kernelI2FeI2Fq"), "g2_add": ("point_add", "group_add_kernelI4Fq2E"),
-    "g1_add01": ("point_add", "point_add_kernelI2FeI2Fq"), "g2_add01": ("point_add", "point_add_kernelI4Fq2E"),
+    # group_add_kernel<E, LEAF>: the bool's mangling, Lb0E or Lb1E, tells the forms apart
+    "g1_add": ("point_add", "group_add_kernelI2FeI2FqELb0E"), "g2_add": ("point_add", "group_add_kernelI4Fq2ELb0E"),
+    "g1_add01": ("point_add", "group_add_kernelI2FeI2FqELb1E"), "g2_add01": ("point_add", "group_add_kernelI4Fq2ELb1E"),
     "affine_pre": ("affine", "affine_pre_kernelI2FeI2Fq"), "affine_post": ("affine", "affine_post_kernelI2FeI2Fq"),
     "affine_pre_g2": ("affine", "affine_pre_kernelI4Fq2E"), "affine_post_g2": ("affine", "affine_post_kernelI4Fq2E"),
     "int8_dot": ("int8_dot", "int8_dot_kernel"), "int8_dot_loop": ("int8_dot", "int8_dot_loop_kernel"),
@@ -111,7 +112,9 @@ PROOF_KERNELS = [k for k in REPLACES if k not in TOOL_KERNELS and k != "mont_inv
 G1_BLOCKS = (96, 192)
 # lanes of the affine levels' kernel checks: level 0 of the h query (32
 # windows x 2^17 points / 2) and of b_g2's full part (32 windows x 2^14
-# points / 2); the G1 composite level at 2^19 lanes
+# points / 2); the G1 composite level at 2^19 lanes. The same widths are the
+# scan ladder's widest leaf launches, where the leaf adds are checked and
+# timed as well
 AFFINE_LANES = {1: 1 << 21, 2: 1 << 18}
 AFFINE_LEVEL_LANES = 1 << 19
 # Fq products of 2 (2 W^2 + W) IMADs, W = 12
@@ -339,13 +342,12 @@ def _field_inputs(spec, n, rng, dev):
     return (torch.as_tensor(a.astype(np.int32), device=dev), torch.as_tensor(b.astype(np.int32), device=dev))
 
 
-def _point_inputs(group, rows_np, n, dev):
-    """(P, Q, Pp, Qp): affine-encoded operands (Z in {0, mont-1}) and
-    projective ones (general Z), with identity+identity, P+P, P+(-P),
-    identity+P and P+identity in the first lanes."""
+def _leaf_inputs(group, rows_np, n, dev):
+    """(P, Q): affine-encoded operands (Z in {0, mont-1}) with
+    identity+identity, P+P, P+(-P), identity+P and P+identity in the first
+    lanes."""
     import torch
 
-    from masp_tpu_torch.kernels import point_add as PA
     from masp_tpu_torch.ops import msm_sorted as MS, weierstrass as W
     from masp_tpu_torch.ops.msm import identity_rows
 
@@ -359,6 +361,21 @@ def _point_inputs(group, rows_np, n, dev):
     Q[2] = MS._g_neg(fops, P[2:3])[0]
     P[3] = ident
     Q[4] = ident
+    return P, Q
+
+
+def _point_inputs(group, rows_np, n, dev):
+    """(P, Q, Pp, Qp): _leaf_inputs and projective operands (general Z) with
+    the same edge lanes."""
+    import torch
+
+    from masp_tpu_torch.kernels import point_add as PA
+    from masp_tpu_torch.ops import msm_sorted as MS, weierstrass as W
+    from masp_tpu_torch.ops.msm import identity_rows
+
+    fops = W.G1Ops if group == 1 else W.G2Ops
+    P, Q = _leaf_inputs(group, rows_np, n, dev)
+    ident = identity_rows(fops, (1,), dev)[0]
     # projective operands: sums of affine points have general Z
     Pp = PA.point_add_plain(group, P, torch.roll(Q, 7, 0))
     Qp = PA.point_add_plain(group, torch.roll(P, 3, 0), Q)
@@ -414,7 +431,7 @@ def kernel_phase(params, dev, rng, card: str) -> dict:
             if leaf:  # the leaf form gives the complete formula's limbs
                 _check_equal(name + " vs complete", add(x, y), PA.point_add(group, x, y, False))
             _check_equal(name + " (strided)", add(pairs[:, :K], pairs[:, K:]), want)
-            for width in (1, 3, 32, 128, 1003):  # the chains' widths and ragged counts, the edge lanes first
+            for width in (1, 3, 17, 32, 128, 1003):  # the chains' widths and ragged counts, the edge lanes first
                 _check_equal(f"{name} (width {width})", add(x[:width], y[:width]), want[:width])
                 _check_equal(f"{name} (width {width}, strided)",
                              add(pairs[:width, :K], pairs[:width, K:]), want[:width])
@@ -432,6 +449,8 @@ def kernel_phase(params, dev, rng, card: str) -> dict:
             if group == 1 and not leaf:
                 g1_block_phase(x, y, want, nbytes, card)
             out[name]["plain_ms"] = _median_ms(lambda: PA.point_add_plain(group, x, y, leaf), 3)
+            if leaf:
+                out[name]["widest"] = leaf_widest_phase(group, rows, dev, card)
     out.update(affine_kernel_phase(params, dev, card))
     for name, r in out.items():
         # bytes of the int32 rows the kernel reads and writes; each row holds
@@ -444,6 +463,75 @@ def kernel_phase(params, dev, rng, card: str) -> dict:
             f"for int32 rows, {bytes_ms / 2:.4f} ms for the 16-bit payload; operations {ops_ms:.6f} ms) "
             f"on {card}")
     return out
+
+
+def leaf_widest_phase(group, rows_np, dev, card: str) -> dict:
+    """The leaf add of ``group`` at the scan ladder's widest leaf launch
+    (AFFINE_LANES: h's leaf level on G1, b_g2's on G2), bit for bit against
+    its plain version (in chunks), contiguous and strided, and against the
+    complete kernel; its time there in a CUDA graph, inputs from HBM."""
+    import torch
+
+    from masp_tpu_torch.kernels import point_add as PA
+
+    n = AFFINE_LANES[group]
+    name = f"g{group}_add01"
+    P, Q = _leaf_inputs(group, rows_np, n, dev)
+    K = P.shape[1]
+    pairs = torch.cat([P, Q], dim=1)  # strided operands, as the ladder passes them
+
+    def add(p, q):
+        return PA.point_add(group, p, q, True)
+
+    want = _chunked(lambda a, b: PA.point_add_plain(group, a, b, True), n, P, Q)
+    _check_equal(f"{name} (width {n})", add(P, Q), want)
+    _check_equal(f"{name} (width {n}, strided)", add(pairs[:, :K], pairs[:, K:]), want)
+    _check_equal(f"{name} (width {n}) vs complete", PA.point_add(group, P, Q), want)
+    ms = _kernel_ms(add, (P, Q), 3 * n * K * 4)
+    log(f"kernel {name} at {n} pairs (the widest leaf launch): bit-identical to plain, contiguous and strided, "
+        f"and to the complete kernel (tolerance: exact); {ms:.4f} ms per launch in a CUDA graph, inputs from HBM, "
+        f"on {card}")
+    return {"n": n, "ms": ms}
+
+
+def leaf_widths(asm, params, rs, dev) -> dict:
+    """The pairs of every leaf launch of one proof on the current MSM
+    configuration, by kernel name: one proof with PA.point_add wrapped by a
+    recorder (the launches still run and count)."""
+    from masp_tpu_torch.groth16 import create_proof_from_assembly
+    from masp_tpu_torch.kernels import point_add as PA
+
+    real = PA.point_add
+    widths = {"g1_add01": [], "g2_add01": []}
+
+    def record(group, p, q, leaf01=False):
+        if leaf01:
+            widths[f"g{group}_add01"].append(p.shape[0])
+        return real(group, p, q, leaf01)
+
+    PA.point_add = record
+    try:
+        create_proof_from_assembly(asm, params, *rs, device=dev)
+    finally:
+        PA.point_add = real
+    return widths
+
+
+def leaf_per_proof(widths, params, dev, card: str) -> None:
+    """Each leaf add's pairs per proof and its device time per proof: the
+    kernel timed in a CUDA graph at every width the proof launched it at
+    (inputs from HBM), summed over the proof's launches."""
+    from masp_tpu_torch.kernels import point_add as PA
+
+    for group, rows in ((1, params.h), (2, params.b_g2)):
+        name = f"g{group}_add01"
+        ws = widths[name]
+        P, Q = _leaf_inputs(group, rows, max(ws), dev)
+        ms = {w: _kernel_ms(lambda p, q: PA.point_add(group, p, q, True), (P[:w], Q[:w]), 3 * w * P.shape[1] * 4)
+              for w in sorted(set(ws))}
+        log(f"kernel {name} per proof: {len(ws)} launches, {sum(ws)} pairs (widths {ws}); "
+            f"{sum(ms[w] for w in ws):.4f} ms of kernel time per proof (in a CUDA graph, inputs from HBM; "
+            f"ms per launch by width: {json.dumps({w: round(t, 4) for w, t in ms.items()})}) on {card}")
 
 
 def _g1_add_built_with(block: int):
@@ -878,6 +966,9 @@ def profile_proof(label, asm, params, rs, dev, card):
         f"({100 * busy_ms / wall_ms:.1f}%, idle {100 - 100 * busy_ms / wall_ms:.1f}%) on {card}")
     for e in sorted(events, key=lambda e: e.self_device_time_total, reverse=True)[:12]:
         log(f"[{label}]   {e.self_device_time_total / 1e3:9.2f} ms {e.count:7d} calls  {e.key[:90]}")
+    for e in events:  # every point-add instance, the leaf forms among them
+        if "add_kernel" in e.key:
+            log(f"[{label}]   point add: {e.self_device_time_total / 1e3:.2f} ms {e.count} calls  {e.key[:90]}")
 
 
 # --- main ------------------------------------------------------------------------------
@@ -1002,6 +1093,7 @@ def main(argv) -> int:
         MS.AFFINE_LADDER = default
     if any(launches["scan"][k] for k in affine_kernels):
         raise AssertionError("[scan] the scan ladder launched the affine kernels")
+    leaf_per_proof(leaf_widths(asm, params, rs[1], dev), params, dev, card)
 
     def path_launches(name):
         """Launches on the path that runs the kernel: the affine kernels'
@@ -1012,7 +1104,8 @@ def main(argv) -> int:
     # "ms" is per launch inside a CUDA graph with inputs from HBM; "eager_ms"
     # is CUDA events around one eager call, the host's launch included;
     # "bytes" and "ops_ms" are the two sides of the bound; "launches_by_path"
-    # holds each configuration's launches over its timed proofs
+    # holds each configuration's launches over its timed proofs; "widest" is
+    # a leaf add's pairs and ms at the main path's widest leaf launch
     line = {"kernels": [{
         "name": name, "route": "cuda", "source": SOURCE[name], "replaces": REPLACES[name],
         "launches": k["launches"] if name in TOOL_KERNELS else path_launches(name),
@@ -1020,7 +1113,8 @@ def main(argv) -> int:
         "max_abs_err": k["max_abs_err"], "ms": k["ms"],
         "eager_ms": k["eager_ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
         "bound_by": k["bound_by"], "library_ms": k.get("library_ms"), "bytes": k["bytes"],
-        "ops_ms": k["ops_ms"], "ptxas": ptxas[name]} for name, k in {**kern, **tools}.items()]}
+        "ops_ms": k["ops_ms"], "ptxas": ptxas[name], "widest": k.get("widest")}
+        for name, k in {**kern, **tools}.items()]}
     print(json.dumps(line))
     print(card)
     # the run used one card, whatever the machine holds

@@ -10,8 +10,8 @@
 //
 // The coordinate elements of the curve kernels are FqE (G1) and Fq2E =
 // Fq[u]/(u^2 + 1) (G2, c0 then c1 at a 24-limb offset), with one set of
-// overloads (mul, add, sub, neg, eq, sel, load/store, lds/sts), so that a
-// kernel template over the element serves both groups.
+// overloads (mul, add, sub, neg, eq, sel, mont_one_or_zero, keep_or_zero,
+// lds/sts), so that a kernel template over the element serves both groups.
 #pragma once
 
 #include <cstdint>
@@ -225,16 +225,6 @@ __device__ __forceinline__ void sel(FqE& r, bool m, const FqE& a, const FqE& b) 
 __device__ __forceinline__ void sel(Fq2E& r, bool m, const Fq2E& a, const Fq2E& b) {
   sel(r.c0, m, a.c0, b.c0);
   sel(r.c1, m, a.c1, b.c1);
-}
-
-__device__ __forceinline__ void load(Fq2E& r, const int32_t* p) {
-  load(r.c0, p);
-  load(r.c1, p + 24);
-}
-
-__device__ __forceinline__ void store(int32_t* p, const Fq2E& a) {
-  store(p, a.c0);
-  store(p + 24, a.c1);
 }
 
 // mont-1 where m, else 0 (on Fq2 the real part)

@@ -1,14 +1,15 @@
 // Complete projective point addition on BLS12-381 G1 (over Fq) and G2 (over
 // Fq2 = Fq[u]/(u^2 + 1)): Renes-Costello-Batina 2015 Algorithm 7, a = 0,
-// b3 = 12 on G1 and 12(1 + u) on G2. Two kernels cover the four Pallas kernel
-// bodies they replace (masp_tpu/kernels/field_kernels.py, all behind
-// _g_add_callable): group_add_kernel, a group of six threads per pair, for
-// _g1_add_kernel and _g2_add_kernel (one template over the coordinate
-// field); point_add_kernel, one thread per pair, for the leaf forms
-// _g1_add01_kernel / _g2_add01_kernel, specialised to Z in {0, mont-1} (9
-// field products instead of 12; the identity mask is Z's limb 0 != 0). The
-// leaf form gives the complete formula's limbs exactly: with such Z,
-// (Y1+Z1)(Y2+Z2) - t1 - t2 = Y1 Z2 + Z1 Y2 is a masked select.
+// b3 = 12 on G1 and 12(1 + u) on G2. One kernel template,
+// group_add_kernel<E, LEAF>, a group of six threads per pair, covers the four
+// Pallas kernel bodies it replaces (masp_tpu/kernels/field_kernels.py, all
+// behind _g_add_callable): E is the coordinate field (FqE on G1, Fq2E on G2);
+// LEAF = false is the complete add (_g1_add_kernel, _g2_add_kernel), LEAF =
+// true the leaf form (_g1_add01_kernel, _g2_add01_kernel), specialised to Z in
+// {0, mont-1}: 9 field products instead of 12, the identity mask is Z's limb 0
+// != 0. The leaf form gives the complete formula's limbs exactly: with such Z,
+// Z1 Z2 is mont-1 or 0 and (Y1+Z1)(Y2+Z2) - t1 - t2 = Y1 Z2 + Z1 Y2 is a
+// masked select.
 //
 // Points are rows of 16-bit limbs, [X | Y | Z], with K = 24 limbs per
 // coordinate on G1 and K = 48 (c0 then c1) on G2. Operand rows may be
@@ -17,17 +18,16 @@
 // kernels/point_add.py.
 //
 // Bound: integer multiply-add throughput: a G1 add is 12 Fq products (2 * 144
-// + 12 multiply-adds each), a G2 add 36, against 9 * 96 or 9 * 192 bytes of
-// rows. The Pallas kernels keep the whole formula of a pair in VMEM; one
-// thread holding it in registers needs 184 registers on G1 and spills on G2
-// (6 * 24 words of operands alone), and runs 12 or 36 dependent field
-// products, which the narrow chains of the bucket reduction pay in full.
-// group_add_kernel splits the pair over six threads instead (see its section
-// below); the leaf forms, 9 and 3 launches per 3 proofs, keep one thread.
+// + 12 multiply-adds each), a G1 leaf 9, a G2 add 36, a G2 leaf 27, against
+// 9 * 96 or 9 * 192 bytes of rows. The Pallas kernels keep the whole formula
+// of a pair in VMEM; one thread holding it in registers needs 144-184
+// registers on G1 and spills on G2 (6 * 24 words of operands alone), and runs
+// 9-36 dependent field products. The kernel splits the pair over six threads
+// instead (see its section below).
 
 #include "field.cuh"
 
-// --- the curve constant b3 and the leaf identity mask -------------------------------
+// --- the curve constant b3 and the leaf identity mask ------------------------
 
 __device__ __forceinline__ void times12(FqE& r, const FqE& a) {
   FqE t;
@@ -48,92 +48,12 @@ __device__ __forceinline__ void b3(Fq2E& r, const Fq2E& a) {
   fe_add(r.c1, t0, t1);
 }
 
-// identity mask of a leaf operand: Z's first 16-bit limb != 0 (mont-1 has
-// limb 0 = 0xfffd; on G2 it is c0's limb)
-__device__ __forceinline__ bool live(const FqE& z) { return (z.w[0] & 0xffffu) != 0; }
-__device__ __forceinline__ bool live(const Fq2E& z) { return live(z.c0); }
+// identity mask of a leaf operand from its staged Z: the first 16-bit limb
+// != 0 (mont-1 has limb 0 = 0xfffd; on G2 it is c0's limb), the low half of
+// Z's first packed word
+__device__ __forceinline__ bool live(const uint32_t* z) { return (z[0] & 0xffffu) != 0; }
 
-// --- the formulas ------------------------------------------------------------
-
-template <class E>
-__device__ __forceinline__ void rcb_tail(E& X3, E& Y3, E& Z3, E& t0, E& t1, E& t2,
-                                         E& t3, E& t4) {
-  add(X3, t0, t0);
-  add(t0, X3, t0);
-  b3(t2, t2);
-  add(Z3, t1, t2);
-  sub(t1, t1, t2);
-  b3(Y3, Y3);
-  mul(X3, t4, Y3);
-  mul(t2, t3, t1);
-  sub(X3, t2, X3);
-  mul(Y3, Y3, t0);
-  mul(t1, t1, Z3);
-  add(Y3, t1, Y3);
-  mul(t0, t0, t3);
-  mul(Z3, Z3, t4);
-  add(Z3, Z3, t0);
-}
-
-template <class E>
-__device__ __forceinline__ void rcb_add01(E& X3, E& Y3, E& Z3, const E& X1, const E& Y1,
-                                          const E& Z1, const E& X2, const E& Y2,
-                                          const E& Z2) {
-  const bool m1 = live(Z1);
-  const bool m2 = live(Z2);
-  E t0, t1, t2, t3, t4, u, v;
-  mul(t0, X1, X2);
-  mul(t1, Y1, Y2);
-  mont_one_or_zero(t2, m1 && m2);
-  add(t3, X1, Y1);
-  add(t4, X2, Y2);
-  mul(t3, t3, t4);
-  add(t4, t0, t1);
-  sub(t3, t3, t4);
-  keep_or_zero(u, Y1, m2);
-  keep_or_zero(v, Y2, m1);
-  add(t4, u, v);  // (Y1+Z1)(Y2+Z2) - t1 - t2
-  keep_or_zero(u, X1, m2);
-  keep_or_zero(v, X2, m1);
-  add(Y3, u, v);  // (X1+Z1)(X2+Z2) - t0 - t2
-  rcb_tail(X3, Y3, Z3, t0, t1, t2, t3, t4);
-}
-
-// the leaf forms: one thread per pair
-template <class E, int K>
-__global__ void __launch_bounds__(128)
-point_add_kernel(const int32_t* __restrict__ p, long long p_stride,
-                 const int32_t* __restrict__ q, long long q_stride,
-                 int32_t* __restrict__ out, long long n) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const int32_t* pr = p + i * p_stride;
-  const int32_t* qr = q + i * q_stride;
-  E X1, Y1, Z1, X2, Y2, Z2, X3, Y3, Z3;
-  load(X1, pr);
-  load(Y1, pr + K);
-  load(Z1, pr + 2 * K);
-  load(X2, qr);
-  load(Y2, qr + K);
-  load(Z2, qr + 2 * K);
-  rcb_add01(X3, Y3, Z3, X1, Y1, Z1, X2, Y2, Z2);
-  int32_t* o = out + i * (3 * K);
-  store(o, X3);
-  store(o + K, Y3);
-  store(o + 2 * K, Z3);
-}
-
-template <class E, int K>
-static int launch_leaf(const int32_t* p, long long ps, const int32_t* q, long long qs,
-                       int32_t* out, long long n, void* stream) {
-  const int threads = 128;
-  const long long blocks = (n + threads - 1) / threads;
-  point_add_kernel<E, K><<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
-      p, ps, q, qs, out, n);
-  return (int)cudaGetLastError();
-}
-
-// --- the complete add, a group of six threads per pair ---------------------------
+// --- the adds, a group of six threads per pair -----------------------------------
 //
 // The twelve products of Algorithm 7 (Fq on G1, Fq2 on G2) fall into two
 // layers of six independent products, with linear steps before, between and
@@ -145,7 +65,13 @@ static int launch_leaf(const int32_t* p, long long ps, const int32_t* q, long lo
 //            terms, b3 of the X-Z cross term;
 //   layer 2: Q_j = O_a * O_b (ADD_L2);
 //   output:  coordinate i (coefficient c on G2) = Q_a + s Q_b (ADD_OUT).
-// The tables describe the formula, not the group: both instantiations read
+// The leaf form (LEAF) replaces three products of layer 1 by the selects
+// that Z in {0, mont-1} collapses them to: P2 = Z1 Z2 = mont-1 when both
+// operands are live, else 0; P4 and P5 = keep(A_u, live B) + keep(B_u, live
+// A) with u = ADD_L1[j][0], the cross terms Y1 Z2 + Z1 Y2 and X1 Z2 + Z1 X2
+// themselves. Its linear step reads LEAF_LIN, which takes those two as they
+// are; layer 2 and the output step are the complete add's.
+// The tables describe the formula, not the group: every instantiation reads
 // the one copy below. kernels/point_add.py holds the same tables (a test
 // checks that they agree) and a test runs them on host ints against the host
 // curve. Every step is a fully reduced field operation, so the limbs equal
@@ -156,14 +82,20 @@ static int launch_leaf(const int32_t* p, long long ps, const int32_t* q, long lo
 // Karatsuba Fq2 product (3 Fq products) on G2. The output step has 3 Fq
 // values on G1 (threads 0-2) and 6 on G2 (coefficient c of coordinate i is
 // thread 2 i + c). Six won over three threads per pair at every width
-// measured on G2 (PERF.md). A step's work differs per thread only in the
-// addresses and signs it reads from the tables, so a warp never diverges on
-// it. The block stages its pairs' rows in shared memory with 16-byte loads,
-// packed to 32-bit words, and the steps exchange their values there, with a
-// barrier between steps; the output rows go back with 16-byte stores. A
-// thread holds two operands and one product at a time instead of the whole
-// formula, and the critical path is 2 dependent products (6 Fq products on
-// G2) instead of 12 (36).
+// measured on G2, and on the leaf form everywhere but G1's 2^21-pair launch
+// (PERF.md). A step's work differs per thread only in the addresses and
+// signs it reads from the tables, so a warp never diverges on it, except in
+// the leaf's layer 1: there a pair's three products and three selects (a
+// few dozen instructions each select) go to threads by their place in the
+// block, the products to the first half, so that only the warp across the
+// middle runs both; with the six threads of every pair running both paths
+// the leaf took 11% (G1) and 4-6% (G2) longer (PERF.md). The block stages
+// its pairs' rows in shared memory with 16-byte loads, packed to 32-bit
+// words, and the steps exchange their values there, with a barrier between
+// steps; the output rows go back with 16-byte stores. A thread holds two
+// operands and one product at a time instead of the whole formula, and the
+// critical path is 2 dependent products (6 Fq products on G2) instead of
+// 9-12 (27-36).
 
 __constant__ int ADD_L1[6][2] = {{0, 3}, {1, 3}, {2, 3}, {0, 1}, {1, 2}, {0, 2}};
 // d, s, beta, a, b, c
@@ -175,12 +107,24 @@ __constant__ int ADD_LIN[6][6] = {
     {6, 1, 0, 4, 1, 2},   // t4 = P4 - P1 - P2
     {6, 1, 1, 5, 0, 2},   // Y3 = b3 (P5 - P0 - P2)
 };
+// the leaf's linear step: ADD_LIN with rows 4 and 5 on the selects
+__constant__ int LEAF_LIN[6][6] = {
+    {0, -1, 0, 6, 0, 0},  // t0 = 3 P0
+    {1, -1, 1, 2, 6, 6},  // t1 = P1 - b3 P2
+    {1, 1, 1, 2, 6, 6},   // Z3 = P1 + b3 P2
+    {6, 1, 0, 3, 0, 1},   // t3 = P3 - P0 - P1
+    {4, 1, 0, 6, 6, 6},   // t4 = P4
+    {6, 1, 1, 5, 6, 6},   // Y3 = b3 P5
+};
 __constant__ int ADD_L2[6][2] = {{4, 5}, {3, 1}, {5, 0}, {1, 2}, {0, 3}, {2, 4}};
 // a, b, s: X3 = Q1 - Q0, Y3 = Q3 + Q2, Z3 = Q5 + Q4
 __constant__ int ADD_OUT[3][3] = {{1, 0, -1}, {3, 2, 1}, {5, 4, 1}};
 
-// Threads a block of the G1 instantiation (a multiple of 6). 96 and 192
-// were measured (PERF.md, chip_smoke.py builds both); the G2 one keeps 96.
+template <bool LEAF>
+__device__ __forceinline__ int lin(int j, int k) { return LEAF ? LEAF_LIN[j][k] : ADD_LIN[j][k]; }
+
+// Threads a block of the G1 instantiations (a multiple of 6). 96 and 192
+// were measured (PERF.md, chip_smoke.py builds both); the G2 ones keep 96.
 #ifndef MASP_G1_ADD_BLOCK
 #define MASP_G1_ADD_BLOCK 96
 #endif
@@ -234,7 +178,7 @@ __device__ __forceinline__ void add_signed(Fq2E& r, const Fq2E& a, const Fq2E& b
   add_signed(r.c1, a.c1, b.c1, s);
 }
 
-template <class E>
+template <class E, bool LEAF>
 __global__ void __launch_bounds__(GroupAdd<E>::BLOCK)
 group_add_kernel(const int32_t* __restrict__ p, long long p_stride,
                  const int32_t* __restrict__ q, long long q_stride,
@@ -270,32 +214,53 @@ group_add_kernel(const int32_t* __restrict__ p, long long p_stride,
   }
   __syncthreads();
 
-  // layer 1: P_j = (A_u + A_v)(B_u + B_v) into area B
+  // layer 1: P_j = (A_u + A_v)(B_u + B_v) into area B. The leaf form writes
+  // selects for slots 2, 4 and 5, and its threads take their pair and slot by
+  // their place in the block: the first 3 PAIRS threads the products of
+  // slots 0, 1 and 3, the rest the selects, so that at most one warp runs
+  // both paths
   {
-    E x, y, u, v;
-    lds_slot(x, A, ADD_L1[j][0], 3);
-    lds_slot(u, A, ADD_L1[j][1], 3);
-    add(x, x, u);
-    lds_slot(y, A + 3 * WORDS, ADD_L1[j][0], 3);
-    lds_slot(v, A + 3 * WORDS, ADD_L1[j][1], 3);
-    add(y, y, v);
-    mul(u, x, y);
-    sts(B + j * WORDS, u);
+    const int role = tid / G::PAIRS;
+    const int k = !LEAF ? j : role == 2 ? 3 : role == 3 ? 2 : role;  // the slot
+    uint32_t* a = LEAF ? smem + (tid % G::PAIRS) * G::PAIR_WORDS : A;
+    E x, y;
+    if (LEAF && role >= 3) {
+      const bool live1 = live(a + 2 * WORDS), live2 = live(a + 5 * WORDS);
+      if (k == 2) {
+        mont_one_or_zero(x, live1 && live2);  // Z1 Z2
+      } else {  // A_u Z2 + Z1 B_u
+        lds_slot(x, a, ADD_L1[k][0], 3);
+        keep_or_zero(x, x, live2);
+        lds_slot(y, a + 3 * WORDS, ADD_L1[k][0], 3);
+        keep_or_zero(y, y, live1);
+        add(x, x, y);
+      }
+    } else {
+      E u, v;
+      lds_slot(u, a, ADD_L1[k][0], 3);
+      lds_slot(v, a, ADD_L1[k][1], 3);
+      add(u, u, v);
+      lds_slot(y, a + 3 * WORDS, ADD_L1[k][0], 3);
+      lds_slot(v, a + 3 * WORDS, ADD_L1[k][1], 3);
+      add(y, y, v);
+      mul(x, u, y);
+    }
+    sts(a + G::AREA_B + k * WORDS, x);
   }
   __syncthreads();
 
   // linear: O_j = P_d + s beta(P_a - P_b - P_c) into area A
   {
     E x, y, z;
-    lds_slot(x, B, ADD_LIN[j][3], 6);
-    lds_slot(y, B, ADD_LIN[j][4], 6);
+    lds_slot(x, B, lin<LEAF>(j, 3), 6);
+    lds_slot(y, B, lin<LEAF>(j, 4), 6);
     sub(x, x, y);
-    lds_slot(y, B, ADD_LIN[j][5], 6);
+    lds_slot(y, B, lin<LEAF>(j, 5), 6);
     sub(x, x, y);
     b3(y, x);
-    sel(x, ADD_LIN[j][2] != 0, y, x);
-    lds_slot(z, B, ADD_LIN[j][0], 6);
-    add_signed(y, z, x, ADD_LIN[j][1]);
+    sel(x, lin<LEAF>(j, 2) != 0, y, x);
+    lds_slot(z, B, lin<LEAF>(j, 0), 6);
+    add_signed(y, z, x, lin<LEAF>(j, 1));
     sts(A + j * WORDS, y);
   }
   __syncthreads();
@@ -336,7 +301,7 @@ group_add_kernel(const int32_t* __restrict__ p, long long p_stride,
   }
 }
 
-template <class E>
+template <class E, bool LEAF>
 static int launch_group(const int32_t* p, long long ps, const int32_t* q, long long qs,
                         int32_t* out, long long n, void* stream) {
   using G = GroupAdd<E>;
@@ -344,7 +309,7 @@ static int launch_group(const int32_t* p, long long ps, const int32_t* q, long l
   const int vec = ((uintptr_t)p % 16 == 0) && ((uintptr_t)q % 16 == 0) && (ps % 4 == 0) &&
                   (qs % 4 == 0);
   const long long blocks = (n + G::PAIRS - 1) / G::PAIRS;
-  group_add_kernel<E><<<(unsigned)blocks, G::BLOCK, 0, (cudaStream_t)stream>>>(
+  group_add_kernel<E, LEAF><<<(unsigned)blocks, G::BLOCK, 0, (cudaStream_t)stream>>>(
       p, ps, q, qs, out, n, vec);
   return (int)cudaGetLastError();
 }
@@ -354,10 +319,10 @@ extern "C" int masp_point_add(int group, int leaf01, const int32_t* p,
                               long long p_stride, const int32_t* q, long long q_stride,
                               int32_t* out, long long n, void* stream) {
   if (group == 1)
-    return leaf01 ? launch_leaf<FqE, 24>(p, p_stride, q, q_stride, out, n, stream)
-                  : launch_group<FqE>(p, p_stride, q, q_stride, out, n, stream);
+    return leaf01 ? launch_group<FqE, true>(p, p_stride, q, q_stride, out, n, stream)
+                  : launch_group<FqE, false>(p, p_stride, q, q_stride, out, n, stream);
   if (group == 2)
-    return leaf01 ? launch_leaf<Fq2E, 48>(p, p_stride, q, q_stride, out, n, stream)
-                  : launch_group<Fq2E>(p, p_stride, q, q_stride, out, n, stream);
+    return leaf01 ? launch_group<Fq2E, true>(p, p_stride, q, q_stride, out, n, stream)
+                  : launch_group<Fq2E, false>(p, p_stride, q, q_stride, out, n, stream);
   return (int)cudaErrorInvalidValue;
 }

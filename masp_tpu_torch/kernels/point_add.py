@@ -3,10 +3,11 @@
 Replaces the Pallas kernels ``_g1_add_kernel``, ``_g2_add_kernel``,
 ``_g1_add01_kernel`` and ``_g2_add01_kernel`` of
 masp_tpu/kernels/field_kernels.py (all behind ``_g_add_callable``). The CUDA
-kernels are in ``csrc/point_add.cu``: the complete add on either group gives
-each pair a group of six threads that follow the schedule ``ADD_L1`` ...
-``ADD_OUT`` (one template over the coordinate field); the leaf forms (Z in
-{0, mont-1}, 9 products instead of 12) keep one thread per pair.
+kernel is ``group_add_kernel<E, LEAF>`` in ``csrc/point_add.cu``, one
+template over the coordinate field and the form: each pair gets a group of
+six threads that follow the schedule ``ADD_L1`` ... ``ADD_OUT``; the leaf
+form (Z in {0, mont-1}, 9 products instead of 12) computes three products of
+layer 1 as selects and its linear step from ``LEAF_LIN``.
 
 Points are packed rows (n, 3K) int32 of 16-bit limbs, [X | Y | Z], with
 K = 24 on G1 and K = 48 on G2 (Fq2 coordinates as c0 limbs then c1 limbs);
@@ -43,8 +44,8 @@ class _PlainFq2(Fq2Arith):
     fq_mul = staticmethod(_plain_fq_mul)
 
 
-# The complete add's schedule on either group (csrc/point_add.cu,
-# group_add_kernel, which holds the same tables). Its twelve products (Fq on
+# The adds' schedule on either group (csrc/point_add.cu, group_add_kernel,
+# which holds the same tables). Its twelve products (Fq on
 # G1, Fq2 on G2) run in two layers of six; thread j of a pair's group of six
 # computes product, operand or output j of every step (an Fq2 product as
 # three Fq products, Karatsuba).
@@ -62,6 +63,14 @@ ADD_LIN = (
     (6, 1, 0, 3, 0, 1),   # t3 = P3 - P0 - P1
     (6, 1, 0, 4, 1, 2),   # t4 = P4 - P1 - P2
     (6, 1, 1, 5, 0, 2),   # Y3 = b3 (P5 - P0 - P2)
+)
+# The leaf form (Z in {0, mont-1}): threads 2, 4 and 5 write selects in place
+# of their layer-1 products: P2 = Z1 Z2 (mont-1 when both operands are live,
+# else 0), P4 and P5 = A_u Z2 + Z1 B_u (u = ADD_L1[j][0]: Y, then X), the
+# cross terms themselves; its linear step takes those two as they are.
+LEAF_LIN = ADD_LIN[:4] + (
+    (4, 1, 0, 6, 6, 6),   # t4 = P4
+    (6, 1, 1, 5, 6, 6),   # Y3 = b3 P5
 )
 # Layer 2: Q_j = O_a O_b, (a, b) = ADD_L2[j].
 ADD_L2 = ((4, 5), (3, 1), (5, 0), (1, 2), (0, 3), (2, 4))
@@ -125,4 +134,4 @@ def point_add(group: int, p, q, leaf01: bool = False):
     return out
 
 
-__all__ = ["point_add", "point_add_plain", "ADD_L1", "ADD_LIN", "ADD_L2", "ADD_OUT"]
+__all__ = ["point_add", "point_add_plain", "ADD_L1", "ADD_LIN", "LEAF_LIN", "ADD_L2", "ADD_OUT"]

@@ -1,6 +1,7 @@
 """Every CUDA kernel of the port against its plain PyTorch version on the
 card, bit for bit (integer arithmetic: the tolerance is exact equality), at
-small widths (1, 3, 32, 1003) with the edge lanes first.
+small widths (1, 3, 32, 1003; the point adds also at 17, one pair past a
+block, and 128, the widest bucket chain) with the edge lanes first.
 
 This file imports neither jax nor masp_tpu, so it runs where only the port
 is installed; every test is marked ``cuda`` and skips without a card. Run it
@@ -32,6 +33,7 @@ from masp_tpu_torch.ops import weierstrass as W
 from masp_tpu_torch.ops.field import FQ, FR
 
 WIDTHS = [1, 3, 32, 1003]
+ADD_WIDTHS = [1, 3, 17, 32, 128, 1003]
 SPECS = {"Fr": FR, "Fq": FQ}
 GROUPS = {1: (G1, W.encode_g1_points), 2: (G2, W.encode_g2_points)}
 
@@ -108,21 +110,30 @@ def _proj_rows(group, points, dev):
                            device=dev)
 
 
-def check_point_add(dev, group, leaf01, width):
+def check_point_add(dev, group, leaf01, width, mix=False):
     """The complete adds on projective operands (general Z) and the leaf
     adds on Z in {0, mont-1}, contiguous and strided (the ladder's even and
-    odd views)."""
+    odd views); the leaf also against the complete kernel, whose limbs it
+    gives. ``mix``: identities at seeded rows of both operands, so that one
+    warp holds O+O, O+P, P+O and P+P."""
     p1, p2 = _pairs(group, width, 10 + group)
     P, Q = _proj_rows(group, p1, dev), _proj_rows(group, p2, dev)
     if not leaf01:
         P = PA.point_add_plain(group, P, torch.roll(Q, 1, 0))
         P[0] = Q[0]  # identity + identity stays first
+    if mix:
+        rng = np.random.default_rng(40 + group)
+        ident = _proj_rows(group, [GROUPS[group][0].identity()], dev)[0]
+        P[torch.as_tensor(rng.random(width) < 0.3, device=dev)] = ident
+        Q[torch.as_tensor(rng.random(width) < 0.3, device=dev)] = ident
     want = PA.point_add_plain(group, P, Q, leaf01)
     K = P.shape[1]
     pairs = torch.cat([P, Q], dim=1)
     name = f"g{group}_add01" if leaf01 else f"g{group}_add"
     assert torch.equal(_launched(name, lambda: PA.point_add(group, P, Q, leaf01)), want)
     assert torch.equal(_launched(name, lambda: PA.point_add(group, pairs[:, :K], pairs[:, K:], leaf01)), want)
+    if leaf01:
+        assert torch.equal(PA.point_add(group, P, Q), want)
 
 
 def _aff_rows(group, points, dev, decoy=None):
@@ -188,7 +199,8 @@ def check_mont_mul_mxu(dev, width):
 CASES = (
     [(check_mont_mul, (name, w)) for name in SPECS for w in WIDTHS]
     + [(check_mont_inv, (name, w)) for name in SPECS for w in WIDTHS]
-    + [(check_point_add, (g, leaf, w)) for g in (1, 2) for leaf in (False, True) for w in WIDTHS]
+    + [(check_point_add, (g, leaf, w)) for g in (1, 2) for leaf in (False, True) for w in ADD_WIDTHS]
+    + [(check_point_add, (g, leaf, 128, True)) for g in (1, 2) for leaf in (False, True)]
     + [(check_affine_pre_post, (g, w)) for g in (1, 2) for w in WIDTHS]
     + [(check_int8_dot, (w,)) for w in WIDTHS]
     + [(check_mont_mul_mxu, (w,)) for w in WIDTHS]

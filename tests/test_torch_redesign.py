@@ -1,8 +1,9 @@
 """The CPU side of the redesigned kernels: the inversion kernel's plain
 chain for Fq and Fr and its routing (kernels/mont_mul.mont_inv: every Fermat
-chain of the proof path is one launch), and the complete add's thread schedule on G1 and
-G2 (kernels/point_add.ADD_L1 ... ADD_OUT) on host ints and in the CUDA
-source. Integer arithmetic: every comparison is exact."""
+chain of the proof path is one launch), and the adds' thread schedule on G1 and
+G2 (kernels/point_add.ADD_L1 ... ADD_OUT, and LEAF_LIN for the leaf form) on
+host ints and in the CUDA source. Integer arithmetic: every comparison is
+exact."""
 
 import os
 import random
@@ -165,18 +166,26 @@ def test_every_fermat_chain_is_one_inversion_call(monkeypatch):
     assert calls[4:] == [(1, FQ.L)]
 
 
-# --- the complete add's schedule ------------------------------------------------
+# --- the adds' schedule ---------------------------------------------------------
 
-def _scheduled_add(grp, p, q):
+def _scheduled_add(grp, p, q, leaf01=False):
     """RCB'15 Algorithm 7 on host projective coordinates of G1 (Fq) or G2
     (Fq2) through the kernel's tables, one step at a time; b3 = 3 b (12 on
-    G1, 12(1 + u) on G2)."""
+    G1, 12(1 + u) on G2). ``leaf01`` (every Z is 0 or 1): threads 2, 4 and
+    5 of layer 1 write their selects, and the linear step reads LEAF_LIN."""
     b3 = grp.B + grp.B + grp.B
     zero = grp.B - grp.B
     pa, qa = list(p) + [zero], list(q) + [zero]
     P = [(pa[u] + pa[v]) * (qa[u] + qa[v]) for u, v in PA.ADD_L1] + [zero]
+    if leaf01:
+        live1, live2 = p[2] != zero, q[2] != zero
+        one = Fq2(1, 0) if grp is G2 else type(zero)(1)
+        P[2] = one if live1 and live2 else zero
+        for j in (4, 5):
+            u = PA.ADD_L1[j][0]
+            P[j] = (pa[u] if live2 else zero) + (qa[u] if live1 else zero)
     O = []
-    for d, s, beta, a, b, c in PA.ADD_LIN:
+    for d, s, beta, a, b, c in PA.LEAF_LIN if leaf01 else PA.ADD_LIN:
         inner = P[a] - P[b] - P[c]
         inner = b3 * inner if beta else inner
         O.append(P[d] + inner if s > 0 else P[d] - inner)
@@ -189,7 +198,8 @@ def _case(grp, name):
     g = grp.generator()
     P, Qp = g * rng.randrange(1, R), g * rng.randrange(1, R)
     O = grp.identity()
-    return {"P+Q": (P, Qp), "P+P": (P, P), "P+(-P)": (P, -P), "O+P": (O, P), "O+O": (O, O)}[name]
+    return {"P+Q": (P, Qp), "P+P": (P, P), "P+(-P)": (P, -P), "O+P": (O, P), "P+O": (P, O),
+            "O+O": (O, O)}[name]
 
 
 def _host_coords(group, rows):
@@ -201,28 +211,33 @@ def _host_coords(group, rows):
 
 
 CASES = ["P+Q", "P+P", "P+(-P)", "O+P", "O+O"]
+LEAF_CASES = CASES + ["P+O"]
 
 
-# the G2 cases keep their ids from before the schedule covered G1
-@pytest.mark.parametrize("group,case", [(2, c) for c in CASES] + [(1, c) for c in CASES],
-                         ids=CASES + [f"G1-{c}" for c in CASES])
-def test_g2_schedule_matches_host_addition(group, case):
+# the complete add's G2 cases keep their ids from before the schedule covered
+# G1 and the leaf form; the leaf's operands are encoded affine (Z in {0, 1})
+@pytest.mark.parametrize(
+    "group,case,leaf01",
+    [(2, c, False) for c in CASES] + [(1, c, False) for c in CASES]
+    + [(g, c, True) for g in (2, 1) for c in LEAF_CASES],
+    ids=CASES + [f"G1-{c}" for c in CASES] + [f"{g}leaf-{c}" for g in ("", "G1-") for c in LEAF_CASES])
+def test_g2_schedule_matches_host_addition(group, case, leaf01):
     """The schedule gives the host sum, and the same projective values as
     the plain version of the kernel (so the same limbs: every step is fully
-    reduced), on G2 and on G1."""
+    reduced), on G2 and on G1, in the complete and the leaf form."""
     grp = G1 if group == 1 else G2
     enc = W.encode_g1_points if group == 1 else W.encode_g2_points
     a, b = _case(grp, case)
     rows = [torch.as_tensor(np.concatenate([np.asarray(c).reshape(1, -1) for c in enc([pt])],
                                            axis=1).astype(np.int32)) for pt in (a, b)]
-    X3, Y3, Z3 = _scheduled_add(grp, *(_host_coords(group, r) for r in rows))
+    X3, Y3, Z3 = _scheduled_add(grp, *(_host_coords(group, r) for r in rows), leaf01=leaf01)
     want = a + b
     if want.is_identity():
         assert Z3 == grp.B - grp.B
     else:
         zi = Z3.invert()
         assert grp.from_xy(X3 * zi, Y3 * zi) == want
-    plain = PA.point_add_plain(group, rows[0], rows[1])
+    plain = PA.point_add_plain(group, rows[0], rows[1], leaf01)
     assert _host_coords(group, plain) == [X3, Y3, Z3]
 
 
@@ -233,16 +248,20 @@ def _cuda_table(src, name):
 
 
 def test_g2_schedule_matches_cuda_source():
-    """The four tables agree with the .cu, which holds one copy of each and
-    one kernel template that both groups' complete adds instantiate."""
+    """The five tables agree with the .cu, which holds one copy of each and
+    one kernel template that both groups' complete and leaf adds
+    instantiate."""
     src = (CSRC / "point_add.cu").read_text()
-    for name in ("ADD_L1", "ADD_LIN", "ADD_L2", "ADD_OUT"):
+    for name in ("ADD_L1", "ADD_LIN", "LEAF_LIN", "ADD_L2", "ADD_OUT"):
         table = getattr(PA, name)
         assert len(re.findall(r"__constant__ int " + name + r"\[", src)) == 1, name
         assert _cuda_table(src, name) == [v for row in table for v in row], name
     assert "G2_" not in src
-    assert "launch_group<FqE>" in src and "launch_group<Fq2E>" in src
-    assert len(re.findall(r"__global__", src)) == 2  # group_add_kernel and the leaf forms' kernel
+    for e in ("FqE", "Fq2E"):
+        for leaf in ("false", "true"):
+            assert f"launch_group<{e}, {leaf}>" in src
+    assert len(re.findall(r"__global__", src)) == 1  # group_add_kernel<E, LEAF>
+    assert "point_add_kernel" not in src
 
 
 def test_inverse_nibbles_match_cuda_source():
