@@ -119,6 +119,13 @@ AFFINE_LANES = {1: 1 << 21, 2: 1 << 18}
 AFFINE_LEVEL_LANES = 1 << 19
 # Fq products of 2 (2 W^2 + W) IMADs, W = 12
 FQ_IMAD = 2 * (2 * 144 + 12)
+# the NTT stages (half-width h) at which the product's stage form is held and
+# timed: one row a butterfly group, a narrow group and the widest stage of
+# the 2^17-point transforms
+STAGE_HS = (1, 1 << 4, 1 << 15)
+# rows at which the product is latency-bound: the fetch's inversion trees
+# and the Fq trees' narrow steps
+NARROW_ROWS = (1, 32, 1024)
 
 
 def log(msg: str) -> None:
@@ -410,7 +417,15 @@ def kernel_phase(params, dev, rng, card: str) -> dict:
             "eager_ms": _median_ms(lambda: MK.mont_mul(spec, a, b), 10),
             "plain_ms": _median_ms(lambda: MK.mont_mul_plain(spec, a, b), 3),
             "ops_ms": _imad_ms(n * 2 * (2 * w * w + w)), "bytes": nbytes,
+            "forms": mont_mul_form_phase(spec, a, b, card),
+            "narrow_ms": {},
         }
+        for rows in NARROW_ROWS:  # latency-bound: the same inputs every call, from L2
+            ms = _kernel_ms(lambda x, y: MK.mont_mul(spec, x, y), (a[:rows], b[:rows]), 3 * rows * spec.L * 4,
+                            launches=20, from_hbm=False)
+            out[name]["narrow_ms"][rows] = ms
+        log(f"kernel {name} at narrow widths (rows: ms per launch in a CUDA graph, inputs in L2): "
+            f"{json.dumps({r: round(t, 5) for r, t in out[name]['narrow_ms'].items()})} on {card}")
     for spec in (FR, FQ):
         out["mont_inv_" + spec.name.lower()] = inverse_kernel_phase(spec, dev, rng, card)
     for group, rows in ((1, params.h), (2, params.b_g2)):
@@ -463,6 +478,152 @@ def kernel_phase(params, dev, rng, card: str) -> dict:
             f"for int32 rows, {bytes_ms / 2:.4f} ms for the 16-bit payload; operations {ops_ms:.6f} ms) "
             f"on {card}")
     return out
+
+
+def _product_bytes(spec, *views) -> int:
+    """Bytes a product over these (..., L) operands must move: each
+    operand's distinct rows read once (a broadcast operand's rows once, a
+    strided one's only the rows it names), the result written once."""
+    import torch
+
+    def rows(t):
+        return int(np.prod([s_ for s_, st in zip(t.shape[:-1], t.stride()[:-1]) if st != 0]))
+
+    n = int(np.prod(torch.broadcast_shapes(*(v.shape for v in views))[:-1]))
+    return 4 * spec.L * (sum(rows(v) for v in views) + n)
+
+
+def _mont_mul_forms(spec, a, b) -> dict:
+    """The product's operand forms on the main path, on the kernel phase's
+    rows a and b: label -> (bases, views), views(*bases) taking the operands
+    from the base tensors, so that a timed copy of the bases keeps the form
+    (cloning a broadcast view would materialise it). Fr on 3 x 2^17 rows,
+    three transforms of 2^17 points: an NTT stage at 3 x 2^16 products (the
+    odd half of every butterfly group, twiddles b[:h] broadcast over the
+    groups) at each h of STAGE_HS, the coset powers b[:2^17] broadcast over
+    the transforms, a scalar in either order, and rows whose base and stride
+    are not 16-byte aligned; Fq on 2^16 rows: a product-tree step's halves
+    p[:h] and p[h:] of p = [a; b]."""
+    import torch
+
+    L, n = spec.L, a.shape[0]
+    if spec.name == "Fq":
+        return {"tree step": ((torch.cat([a, b]),), lambda p: (p[:n], p[n:]))}
+    m = n // 3
+    forms = {f"stage h={h}": ((a, b), lambda x, t, h=h: (x.view(3, m // (2 * h), 2, h, L)[..., 1, :, :], t[:h][None]))
+             for h in STAGE_HS}
+    forms["coset powers"] = ((a, b), lambda x, t: (x.view(3, m, L), t[:m]))
+    forms["scalar"] = ((a, b), lambda x, t: (x, t[7]))
+    forms["scalar first"] = ((a, b), lambda x, t: (t[7], x))
+    wide = torch.cat([a[:, :1], a, a[:, :1]], dim=1)  # rows of L + 2 limbs
+    forms["unaligned"] = ((wide, b), lambda x, t: (x[:, 1 : L + 1], t))
+    return forms
+
+
+def mont_mul_form_phase(spec, a, b, card: str) -> dict:
+    """The product through F.mont_mul (the main path's entry) in each of
+    _mont_mul_forms, bit for bit against mont_mul_plain on the
+    materialised rows, and timed in a CUDA graph (inputs from HBM) with the
+    bound of the bytes the form must move; where the tree copies an
+    operand before the launch, the copy is in the time."""
+    import torch
+
+    from masp_tpu_torch.kernels import mont_mul as MK
+    from masp_tpu_torch.ops import field as F
+
+    name, L, w = "mont_mul_" + spec.name.lower(), spec.L, spec.L // 2
+    out = {}
+    for label, (bases, views) in _mont_mul_forms(spec, a, b).items():
+        x, y = views(*bases)
+        shape = torch.broadcast_shapes(x.shape, y.shape)
+        want = MK.mont_mul_plain(spec, x.expand(shape).reshape(-1, L), y.expand(shape).reshape(-1, L))
+        _check_equal(f"{name} ({label})", F.mont_mul(spec, x, y).reshape(-1, L), want)
+        nbytes = _product_bytes(spec, x, y)
+        r = {"rows": want.shape[0], "bytes": nbytes, "ops_ms": _imad_ms(want.shape[0] * 2 * (2 * w * w + w)),
+             "ms": _kernel_ms(lambda *bs: F.mont_mul(spec, *views(*bs)), bases, nbytes)}
+        _set_bound(r)
+        out[label] = {k: r[k] for k in ("rows", "ms", "bound_ms")}
+        log(f"kernel {name} ({label}): {r['rows']} products bit-identical to plain (tolerance: exact); "
+            f"{r['ms']:.4f} ms per F.mont_mul in a CUDA graph, inputs from HBM, bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']}, {nbytes} B) on {card}")
+    return out
+
+
+def mont_mul_widths(asm, params, rs, dev) -> dict:
+    """Every mont_mul_fr / mont_mul_fq launch of one proof on the current
+    MSM configuration, by form: (field, shape, a's strides and storage
+    offset mod 4, b's) -> launches; one proof with MK.mont_mul wrapped by a
+    recorder (the launches still run and count)."""
+    from collections import Counter
+
+    from masp_tpu_torch.groth16 import create_proof_from_assembly
+    from masp_tpu_torch.kernels import mont_mul as MK
+
+    real = MK.mont_mul
+    seen = Counter()
+
+    def record(spec, a, b):
+        seen[(spec.name, tuple(a.shape), tuple(a.stride()), a.storage_offset() % 4,
+              tuple(b.stride()), b.storage_offset() % 4)] += 1
+        return real(spec, a, b)
+
+    MK.mont_mul = record
+    try:
+        create_proof_from_assembly(asm, params, *rs, device=dev)
+    finally:
+        MK.mont_mul = real
+    return seen
+
+
+def mont_mul_per_proof(seen, dev, card: str) -> dict:
+    """Each field's product per proof from mont_mul_widths: launches and
+    products, the kernel's time per proof (each form timed in a CUDA graph on
+    operands of its shape and strides over random limbs, inputs from HBM
+    where a launch moves 1 MiB or more, else from L2, times its launches),
+    the per-proof bound (each operand's distinct rows once) and the bound of
+    the same products as three full rows each."""
+    import torch
+
+    from masp_tpu_torch.kernels import mont_mul as MK
+    from masp_tpu_torch.ops.field import FQ, FR
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+
+    def base(shape, stride, off):
+        size = off + 1 + sum((s_ - 1) * st for s_, st in zip(shape, stride))
+        return torch.randint(0, 1 << 16, (size,), dtype=torch.int32, device=dev, generator=gen)
+
+    res = {}
+    for spec in (FR, FQ):
+        name, L, w = "mont_mul_" + spec.name.lower(), spec.L, spec.L // 2
+        tot = {"launches": 0, "products": 0, "ms": 0.0, "bound_ms": 0.0, "bound_3rows_ms": 0.0}
+        forms = []
+        for key, count in sorted(((k, c) for k, c in seen.items() if k[0] == spec.name), key=lambda kc: str(kc[0])):
+            _, shape, sa, oa, sb, ob = key
+            n = int(np.prod(shape[:-1]))
+            if n == 0:
+                continue
+
+            def fn(x, y, shape=shape, sa=sa, oa=oa, sb=sb, ob=ob):
+                return MK.mont_mul(spec, torch.as_strided(x, shape, sa, oa), torch.as_strided(y, shape, sb, ob))
+
+            x, y = base(shape, sa, oa), base(shape, sb, ob)
+            nbytes = _product_bytes(spec, torch.as_strided(x, shape, sa, oa), torch.as_strided(y, shape, sb, ob))
+            ms = _kernel_ms(fn, (x, y), nbytes, launches=20, from_hbm=nbytes >= 1 << 20)
+            ops_ms = _imad_ms(n * 2 * (2 * w * w + w))
+            tot["launches"] += count
+            tot["products"] += count * n
+            tot["ms"] += count * ms
+            tot["bound_ms"] += count * max(1e3 * nbytes / HBM_BYTES_PER_S, ops_ms)
+            tot["bound_3rows_ms"] += count * max(1e3 * 3 * n * L * 4 / HBM_BYTES_PER_S, ops_ms)
+            forms.append(f"{count} x {list(shape)} a{list(sa)} b{list(sb)}: {ms:.4f}")
+        res[name] = tot
+        log(f"kernel {name} per proof: {tot['launches']} launches, {tot['products']} products; "
+            f"{tot['ms']:.4f} ms of kernel time per proof (each form in a CUDA graph), bound {tot['bound_ms']:.4f} ms "
+            f"(each operand's distinct rows once), {tot['bound_3rows_ms']:.4f} ms as three rows a product, on {card}")
+        log(f"kernel {name} per proof by form (launches x shape, strides: ms per launch): {'; '.join(forms)}")
+    return res
 
 
 def leaf_widest_phase(group, rows_np, dev, card: str) -> dict:
@@ -948,7 +1109,9 @@ def prove_phase(label, asm, params, rs, check, card, dev, must_launch):
 
 def profile_proof(label, asm, params, rs, dev, card):
     """One proof under torch.profiler (device activity only): the device's
-    busy time against the wall time, and the kernels that take the most."""
+    busy time against the wall time, its activities and PyTorch's copy
+    kernels, the kernels that take the most, and every point add and
+    Montgomery product."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -964,11 +1127,14 @@ def profile_proof(label, asm, params, rs, dev, card):
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3
     log(f"[{label}] profiled proof: wall {wall_ms:.2f} ms, device busy {busy_ms:.2f} ms "
         f"({100 * busy_ms / wall_ms:.1f}%, idle {100 - 100 * busy_ms / wall_ms:.1f}%) on {card}")
+    copies = [e for e in events if "copy" in e.key and not e.key.startswith("Memcpy")]
+    log(f"[{label}]   {sum(e.count for e in events)} device activities; PyTorch's copy kernels "
+        f"{sum(e.self_device_time_total for e in copies) / 1e3:.2f} ms in {sum(e.count for e in copies)} launches")
     for e in sorted(events, key=lambda e: e.self_device_time_total, reverse=True)[:12]:
         log(f"[{label}]   {e.self_device_time_total / 1e3:9.2f} ms {e.count:7d} calls  {e.key[:90]}")
-    for e in events:  # every point-add instance, the leaf forms among them
-        if "add_kernel" in e.key:
-            log(f"[{label}]   point add: {e.self_device_time_total / 1e3:.2f} ms {e.count} calls  {e.key[:90]}")
+    for e in events:  # every point-add instance (the leaf forms among them) and Montgomery product
+        if "add_kernel" in e.key or "mont_mul_kernel" in e.key:
+            log(f"[{label}]   kernel: {e.self_device_time_total / 1e3:.2f} ms {e.count} calls  {e.key[:90]}")
 
 
 # --- main ------------------------------------------------------------------------------
@@ -999,6 +1165,45 @@ def ptxas_report(build) -> dict:
                      if len(found) == 1 else None)
         if out[name] is None:
             log(f"  ptxas: no single entry function of {src}.cu matches {part} ({len(found)} found)")
+    return out
+
+
+def sass_report(build) -> dict:
+    """Static SASS instructions of each mont_mul_kernel instance in the
+    built library (cuobjdump -sass): one thread runs the function once for
+    its one product, so this is the count per product, both load paths
+    (16-byte and 4-byte) included; with the IMAD family and IADD3 among
+    them."""
+    import re
+    from collections import Counter
+    from pathlib import Path
+
+    tool = Path(build.nvcc_path()).parent / "cuobjdump"
+    if not tool.exists():
+        log(f"  sass: no cuobjdump beside nvcc ({tool}): not measured")
+        return {}
+    text = subprocess.run([str(tool), "-sass", str(build.lib_path("mont_mul"))], capture_output=True, text=True,
+                          timeout=120, check=True).stdout
+    counts, fn = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1)
+            counts[fn] = Counter()
+            continue
+        m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", line)
+        if m and fn and m.group(1) != "NOP":
+            counts[fn][m.group(1)] += 1
+    out = {}
+    for name, part in (("mont_mul_fr", "mont_mul_kernelI2Fr"), ("mont_mul_fq", "mont_mul_kernelI2Fq")):
+        found = [c for f, c in counts.items() if part in f]
+        if len(found) != 1:
+            raise AssertionError(f"sass: {len(found)} functions of mont_mul.cu match {part}")
+        c = found[0]
+        out[name] = {"instructions": sum(c.values()), "imad": c["IMAD"], "iadd3": c["IADD3"],
+                     "top": dict(c.most_common(8))}
+        log(f"  sass {name}: {out[name]['instructions']} instructions per product (static, both load paths), "
+            f"IMAD family {c['IMAD']}, IADD3 {c['IADD3']}; most frequent {json.dumps(out[name]['top'])}")
     return out
 
 
@@ -1056,6 +1261,7 @@ def main(argv) -> int:
         f"(h {len(params.h)}, l {len(params.l)}, a {len(params.a)}, b {len(params.b_g1)})")
 
     ptxas = ptxas_report(build)
+    sass = sass_report(build)
     kern = kernel_phase(params, dev, rng, card)
     tools = tools_phase(dev, rng, card)
     if "--kernels" in argv:
@@ -1094,6 +1300,8 @@ def main(argv) -> int:
     if any(launches["scan"][k] for k in affine_kernels):
         raise AssertionError("[scan] the scan ladder launched the affine kernels")
     leaf_per_proof(leaf_widths(asm, params, rs[1], dev), params, dev, card)
+    for name, r in mont_mul_per_proof(mont_mul_widths(asm, params, rs[1], dev), dev, card).items():
+        kern[name]["per_proof"] = r
 
     def path_launches(name):
         """Launches on the path that runs the kernel: the affine kernels'
@@ -1105,7 +1313,10 @@ def main(argv) -> int:
     # is CUDA events around one eager call, the host's launch included;
     # "bytes" and "ops_ms" are the two sides of the bound; "launches_by_path"
     # holds each configuration's launches over its timed proofs; "widest" is
-    # a leaf add's pairs and ms at the main path's widest leaf launch
+    # a leaf add's pairs and ms at the main path's widest leaf launch; a
+    # product's "forms" (ms through F.mont_mul and bound per operand form),
+    # "narrow_ms" (rows: ms, inputs in L2), "per_proof" (the main path's
+    # launches timed at their widths and forms, summed) and "sass"
     line = {"kernels": [{
         "name": name, "route": "cuda", "source": SOURCE[name], "replaces": REPLACES[name],
         "launches": k["launches"] if name in TOOL_KERNELS else path_launches(name),
@@ -1113,7 +1324,9 @@ def main(argv) -> int:
         "max_abs_err": k["max_abs_err"], "ms": k["ms"],
         "eager_ms": k["eager_ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
         "bound_by": k["bound_by"], "library_ms": k.get("library_ms"), "bytes": k["bytes"],
-        "ops_ms": k["ops_ms"], "ptxas": ptxas[name], "widest": k.get("widest")}
+        "ops_ms": k["ops_ms"], "ptxas": ptxas[name], "widest": k.get("widest"),
+        **{key: k[key] for key in ("forms", "narrow_ms", "per_proof") if key in k},
+        **({"sass": sass[name]} if name in sass else {})}
         for name, k in {**kern, **tools}.items()]}
     print(json.dumps(line))
     print(card)

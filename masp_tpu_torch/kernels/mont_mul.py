@@ -12,7 +12,9 @@ version both return the fully reduced product (< N), so their limbs equal the
 JAX package's exactly whenever one operand is < N (always the case in the
 prover): the product before the final subtraction is the unique
 (ab + mN)/R with m = -ab/N mod R, whatever the limb width or the order in
-which m's digits are found.
+which m's digits are found. The product reads each operand where it lies,
+through a two-level row map (``row_map``), so the NTT's strided halves and
+broadcast tables reach the kernel without a copy.
 """
 
 from __future__ import annotations
@@ -122,36 +124,84 @@ def mont_inv_plain(spec, a):
 
 # --- the CUDA kernels' wrappers ---------------------------------------------
 
+def row_map(t):
+    """(inner, s_outer, s_inner) in int32 elements: row i of the (..., L)
+    view ``t``, its leading dimensions flattened, starts (i // inner) *
+    s_outer + (i % inner) * s_inner elements after ``t``'s first limb; None
+    when the leading dimensions need more than two levels. Size-1
+    dimensions are skipped and dimensions whose strides chain are merged,
+    so a contiguous or evenly strided view has one level and an NTT
+    stage's odd half (or a table broadcast over the transforms) two."""
+    dims = []
+    for size, stride in zip(t.shape[:-1], t.stride()[:-1]):
+        if size == 1:
+            continue
+        if dims and dims[-1][1] == size * stride:
+            dims[-1] = (dims[-1][0] * size, stride)
+        else:
+            dims.append((size, stride))
+    if len(dims) > 2:
+        return None
+    if len(dims) == 2:
+        return dims[1][0], dims[0][1], dims[1][1]
+    return (dims[0][0], 0, dims[0][1]) if dims else (1, 0, 0)
+
+
+def mapped_rows(t, rmap):
+    """The (n, L) rows of the view ``t`` read through its row map, as the
+    kernel reads them (the plain route's operands)."""
+    inner, s_outer, s_inner = rmap
+    L = t.shape[-1]
+    n = t.numel() // L
+    return torch.as_strided(t, (n // inner, inner, L), (s_outer, s_inner, 1), t.storage_offset()).reshape(n, L)
+
+
+def _mapped(t):
+    """(t, its row map): a view whose limb axis is not contiguous, or whose
+    rows need more than two levels, is copied first."""
+    rmap = row_map(t) if t.stride(-1) == 1 else None
+    if rmap is None:
+        t = t.contiguous()
+        rmap = row_map(t)
+    return t, rmap
+
+
 @functools.cache
 def _c_fn(name: str):
     fn = getattr(library("mont_mul"), {"Fr": "masp_mont_mul_fr", "Fq": "masp_mont_mul_fq"}[name])
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_void_p]
+    fn.argtypes = ([ctypes.c_void_p] + [ctypes.c_longlong] * 3) * 2 + [ctypes.c_void_p, ctypes.c_longlong,
+                                                                        ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
 def mont_mul(spec, a, b):
-    """a*b*R^-1 mod N on (n, L) int32 limb rows of one device. A CPU tensor
-    runs the plain version; a CUDA tensor launches the kernel or raises."""
+    """a*b*R^-1 mod N on (..., L) int32 limb tensors of one shape and
+    device; returns a new contiguous tensor of that shape. Each operand is
+    read where it lies through its row map (``row_map``: strided and
+    broadcast views are not copied). A CPU tensor runs the plain version on
+    the mapped rows; a CUDA tensor launches the kernel or raises."""
     if a.dtype != torch.int32 or b.dtype != torch.int32:
         raise TypeError("mont_mul takes int32 limb tensors")
-    if a.dim() != 2 or a.shape[1] != spec.L or a.shape != b.shape:
-        raise ValueError(f"mont_mul takes two (n, {spec.L}) tensors, got {tuple(a.shape)}, {tuple(b.shape)}")
+    if a.dim() < 1 or a.shape[-1] != spec.L or a.shape != b.shape:
+        raise ValueError(f"mont_mul takes two (..., {spec.L}) tensors of one shape, "
+                         f"got {tuple(a.shape)}, {tuple(b.shape)}")
     if a.device != b.device:
         raise ValueError("mont_mul operands on different devices")
-    if a.device.type == "cpu":
-        return mont_mul_plain(spec, a, b)
-    if a.device.type != "cuda":
+    if a.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {a.device}")
-    if not (a.is_contiguous() and b.is_contiguous()):
-        raise ValueError("mont_mul takes contiguous tensors")
-    out = torch.empty_like(a)
-    n = a.shape[0]
+    n = a.numel() // spec.L
     if n == 0:
-        return out
+        return torch.empty(a.shape, dtype=torch.int32, device=a.device)
+    (a, ma), (b, mb) = _mapped(a), _mapped(b)
+    if a.device.type == "cpu":
+        return mont_mul_plain(spec, mapped_rows(a, ma), mapped_rows(b, mb)).reshape(a.shape)
+    if n >= 1 << 31:
+        raise ValueError(f"mont_mul takes fewer than 2^31 rows, got {n}")
+    out = torch.empty(a.shape, dtype=torch.int32, device=a.device)
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _c_fn(spec.name)(a.data_ptr(), b.data_ptr(), out.data_ptr(), n, stream)
+        err = _c_fn(spec.name)(a.data_ptr(), *ma, b.data_ptr(), *mb, out.data_ptr(), n, stream)
     if err != 0:
         raise RuntimeError(f"mont_mul kernel launch failed: CUDA error {err}")
     count_launch("mont_mul_" + spec.name.lower())
@@ -191,4 +241,4 @@ def mont_inv(spec, a):
     return out
 
 
-__all__ = ["mont_mul", "mont_mul_plain", "mont_inv", "mont_inv_plain", "fermat_chain"]
+__all__ = ["mont_mul", "mont_mul_plain", "row_map", "mapped_rows", "mont_inv", "mont_inv_plain", "fermat_chain"]

@@ -43,6 +43,7 @@ class FieldSpec:
         self.N = int_to_limbs(modulus, n_limbs)
         self.ONE_MONT = int_to_limbs(self.R_mod, n_limbs)
         self.R2_MONT = int_to_limbs(self.R2_mod, n_limbs)
+        self.ONE_RAW = int_to_limbs(1, n_limbs)  # from_mont's multiplier
         e = modulus - 2
         # exponent bits (MSB first) for Fermat inversion
         self.inv_exp_bits = [(e >> i) & 1 for i in range(e.bit_length() - 1, -1, -1)]
@@ -75,11 +76,11 @@ def mont_mul(spec: FieldSpec, a, b):
     """Montgomery product a*b*R^{-1} mod N on (..., L) limbs. Operands
     broadcast symmetrically, as ``pallas_mont_mul`` does: a constant (L,)
     times a batch works in either order (a one-sided broadcast once crashed
-    the JAX package's batch_from_bytes with the batch on the right)."""
-    shape = torch.broadcast_shapes(a.shape[:-1], b.shape[:-1])
-    a2 = a.expand(shape + (spec.L,)).reshape(-1, spec.L).to(torch.int32).contiguous()
-    b2 = b.expand(shape + (spec.L,)).reshape(-1, spec.L).to(torch.int32).contiguous()
-    return MK.mont_mul(spec, a2, b2).reshape(shape + (spec.L,))
+    the JAX package's batch_from_bytes with the batch on the right). The
+    broadcast views go to the kernel's wrapper as they are: it reads them
+    through their row maps, without materialising them."""
+    shape = torch.broadcast_shapes(a.shape[:-1], b.shape[:-1]) + (spec.L,)
+    return MK.mont_mul(spec, a.to(torch.int32).expand(shape), b.to(torch.int32).expand(shape))
 
 
 def mont_sqr(spec: FieldSpec, a):
@@ -192,9 +193,7 @@ def to_mont(spec: FieldSpec, a):
 
 
 def from_mont(spec: FieldSpec, a):
-    one = torch.zeros(spec.L, dtype=torch.int32, device=a.device)
-    one[0] = 1
-    return mont_mul(spec, a, one)
+    return mont_mul(spec, a, spec.const("ONE_RAW", a.device))
 
 
 # --- host codecs -----------------------------------------------------------

@@ -1,7 +1,9 @@
 """Every CUDA kernel of the port against its plain PyTorch version on the
 card, bit for bit (integer arithmetic: the tolerance is exact equality), at
 small widths (1, 3, 32, 1003; the point adds also at 17, one pair past a
-block, and 128, the widest bucket chain) with the edge lanes first.
+block, and 128, the widest bucket chain) with the edge lanes first. The
+Montgomery product runs at each width in every operand form of the main
+path (strided and broadcast views, read in place) and on unaligned rows.
 
 This file imports neither jax nor masp_tpu, so it runs where only the port
 is installed; every test is marked ``cuda`` and skips without a card. Run it
@@ -62,12 +64,44 @@ def _field_rows(spec, width, seed, dev):
     return torch.as_tensor(F.encode(spec, vals[:width]).astype(np.int32), device=dev)
 
 
-def check_mont_mul(dev, name, width):
+def _mont_mul_forms(x, y, width, form):
+    """Operands of ``width`` products in one of the main path's forms (on
+    rows x of 2 width and y of width): contiguous, an NTT stage's odd half
+    (stride 2L a row, or h rows a butterfly group) with twiddles broadcast,
+    a scalar in either order, a tree step's halves, and rows whose base and
+    stride are not 16-byte aligned (the kernel's 4-byte loads)."""
+    L = x.shape[1]
+    if form.startswith("stage"):
+        h = int(form[6:])
+        return x.view(width // h, 2, h, L)[:, 1], y[:h][None].expand(width // h, h, L)
+    if form == "scalar":
+        return x[:width], y[width // 2].expand(width, L)
+    if form == "scalar first":
+        return y[width // 2].expand(width, L), x[:width]
+    if form == "tree step":
+        return x[:width], x[width:]
+    if form == "unaligned":
+        wide = torch.cat([y[:, :1], y, y[:, :1]], dim=1)  # rows of L + 2 limbs
+        return wide[:, 1 : L + 1], x[::2]
+    return x[:width], y.flip(0).contiguous()
+
+
+def mont_mul_forms(width):
+    """The forms at ``width``: the stage form with h = 1, with h = width and
+    with a middle h that divides it."""
+    hs = sorted({1, width} | {h for h in (4, 17) if width % h == 0})
+    return ["contiguous", "scalar", "scalar first", "tree step", "unaligned"] + [f"stage {h}" for h in hs]
+
+
+def check_mont_mul(dev, name, width, form):
     spec = SPECS[name]
-    a = _field_rows(spec, width, 1, dev)
-    b = _field_rows(spec, width, 2, dev).flip(0).contiguous()
+    x = _field_rows(spec, 2 * width, 1, dev)
+    y = _field_rows(spec, width, 2, dev)
+    a, b = _mont_mul_forms(x, y, width, form)
     got = _launched("mont_mul_" + name.lower(), lambda: MK.mont_mul(spec, a, b))
-    assert torch.equal(got, MK.mont_mul_plain(spec, a, b))
+    assert got.is_contiguous() and got.shape == a.shape
+    want = MK.mont_mul_plain(spec, a.reshape(-1, spec.L), b.reshape(-1, spec.L))
+    assert torch.equal(got.reshape(-1, spec.L), want)
 
 
 def check_mont_inv(dev, name, width):
@@ -197,7 +231,7 @@ def check_mont_mul_mxu(dev, width):
 
 
 CASES = (
-    [(check_mont_mul, (name, w)) for name in SPECS for w in WIDTHS]
+    [(check_mont_mul, (name, w, form)) for name in SPECS for w in WIDTHS for form in mont_mul_forms(w)]
     + [(check_mont_inv, (name, w)) for name in SPECS for w in WIDTHS]
     + [(check_point_add, (g, leaf, w)) for g in (1, 2) for leaf in (False, True) for w in ADD_WIDTHS]
     + [(check_point_add, (g, leaf, 128, True)) for g in (1, 2) for leaf in (False, True)]

@@ -93,6 +93,63 @@ def test_mont_mul_broadcasts_symmetrically(name):
 
 
 @pytest.mark.parametrize("name", ["Fr", "Fq"])
+def test_mont_mul_reads_views_through_row_maps(name, monkeypatch):
+    """The operand forms of the main path at m = 64 rows a transform: an NTT
+    stage's odd half with its twiddles broadcast (h = 1, 4, m / 2), powers
+    broadcast over three transforms, a scalar in either order, contiguous
+    rows and a product-tree step's halves. The row map's rows equal the
+    materialised view's; F.mont_mul on the view equals the JAX package's
+    mont_mul on the same numpy rows and host ints; and F.mont_mul hands the
+    kernel's wrapper the stage's odd half and twiddles as views."""
+    spec, jspec = SPECS[name]
+    L, m = spec.L, 64
+    x = _t(F.encode(spec, _ints(spec.modulus, 3 * m - 5, 11))).reshape(3, m, L)
+    y = _t(F.encode(spec, _ints(spec.modulus, m - 5, 12)))
+    forms = {}
+    for h in (1, 4, m // 2):
+        forms[f"stage h={h}"] = (x.reshape(3, m // (2 * h), 2, h, L)[..., 1, :, :], y[:h][None])
+    forms.update({"powers": (x, y), "scalar": (x, y[7]), "scalar first": (y[7], x),
+                  "contiguous": (x[0], x[1]), "tree step": (y[: m // 2], y[m // 2 :])})
+    # the row maps of the stage forms, as the kernel is given them
+    odd, tw = forms["stage h=4"][0], forms["stage h=4"][1].expand(3, m // 8, 4, L)
+    assert MK.row_map(odd) == (4, 8 * L, L) and MK.row_map(tw) == (4, 0, L)
+    assert MK.row_map(forms["stage h=1"][0]) == (3 * m // 2, 0, 2 * L)
+    assert MK.row_map(odd.expand(2, *odd.shape)) is None  # three levels: copied
+    rows_a, rows_b, got = [], [], []
+    for a, b in forms.values():
+        shape = torch.broadcast_shapes(a.shape, b.shape)
+        for t, rows in ((a.expand(shape), rows_a), (b.expand(shape), rows_b)):
+            rows.append(t.reshape(-1, L))
+            assert torch.equal(MK.mapped_rows(t, MK.row_map(t)), rows[-1])
+        out = F.mont_mul(spec, a, b)
+        assert out.shape == shape and out.is_contiguous()
+        got.append(out.reshape(-1, L))
+    ra, rb, got = torch.cat(rows_a), torch.cat(rows_b), torch.cat(got)
+    want = FJ.mont_mul(jspec, jnp.asarray(ra.numpy().astype(np.uint32)), jnp.asarray(rb.numpy().astype(np.uint32)))
+    assert np.array_equal(got.numpy(), np.asarray(want).astype(np.int32))
+    assert F.decode(spec, got) == [u * v % spec.modulus for u, v in zip(F.decode(spec, ra), F.decode(spec, rb))]
+
+    seen = []
+    real = MK.mont_mul
+
+    def record(spec_, a, b):
+        seen.append((a.is_contiguous(), a.stride(), b.is_contiguous(), b.stride()))
+        seen.append((MK.row_map(a), MK.row_map(b)))
+        return real(spec_, a, b)
+
+    monkeypatch.setattr(MK, "mont_mul", record)
+    F.mont_mul(spec, *forms["stage h=4"])
+    assert seen[:2] == [(False, (m * L, 8 * L, L, 1), False, (0, 0, L, 1)), ((4, 8 * L, L), (4, 0, L))]
+    F.mont_mul(spec, *forms[f"stage h={m // 2}"])  # one butterfly group a transform
+    assert seen[2][::2] == (False, False) and seen[3] == ((m // 2, m * L, L), (m // 2, 0, L))
+    seen.clear()
+    F.mont_mul(spec, *forms["powers"])
+    assert seen[0] == (True, (m * L, L, 1), False, (0, L, 1))
+    F.mont_mul(spec, *forms["scalar first"])
+    assert seen[2] == (False, (0, 0, 1), True, (m * L, L, 1)) and seen[3] == ((3 * m, 0, 0), (3 * m, 0, L))
+
+
+@pytest.mark.parametrize("name", ["Fr", "Fq"])
 def test_plain_mont_mul_small_batches_match_limb_path(name):
     """Up to 16 rows the plain product runs on Python ints: the same limbs
     as the limb path, inputs at or above the modulus (below R) included."""
