@@ -5,12 +5,17 @@ runs the port's two measurement tools at full size (the kernel
 microbenchmark and the tensor-core Montgomery experiment, whose int8 and
 Montgomery kernels are held the same way first), then proves a Spend-shaped
 Groth16 circuit three times in each MSM configuration (the projective scan
-ladder, the default, then the batch-affine ladder) and checks every proof
-with the host pairing verifier and against a toxic-waste oracle.
+ladder, the default, then the batch-affine ladder), and then the real Spend,
+Output and Convert circuits in the default configuration, each synthesised by
+the port's copy of the host circuit stack from bench.py's seeded fixture
+(phase "circuits"). Every proof is checked with the host pairing verifier and
+against a toxic-waste oracle.
 
-    python3 chip_smoke.py            # everything (one card)
-    python3 chip_smoke.py --kernels  # build, kernel checks and the tools only
-    python3 chip_smoke.py --profile  # also one profiled proof per configuration
+    python3 chip_smoke.py             # everything (one card)
+    python3 chip_smoke.py --kernels   # build, kernel checks and the tools only
+    python3 chip_smoke.py --circuits  # build and the real circuits only
+    python3 chip_smoke.py --profile   # also one profiled proof per configuration
+                                      # and of the real Spend
 
 The circuit is a seeded synthetic R1CS with the Spend circuit's shape
 (8 inputs, 100,497 aux variables, 100,645 constraints, A/B/C non-zeros
@@ -18,7 +23,14 @@ The circuit is a seeded synthetic R1CS with the Spend circuit's shape
 variables): the prover's device work depends only on that shape. It is
 satisfiable by construction: boolean wires (1 - b) b = 0, and-gates of bits,
 and product gates x y = z over sparse linear combinations. Parameters come
-from the port's generator with known toxic waste.
+from the port's generator with known toxic waste. It stays beside the real
+circuits so that earlier runs' numbers remain comparable.
+
+The real circuits are held against their pinned constraint and input counts
+and structure digests; each gets parameters of its own from the generator,
+one warm-up proof (its witness records the circuit's witness tape), then
+three timed proofs of Spend and one each of Output and Convert, each from a
+witness replayed by the native tape (host time, logged beside the proof's).
 
 Exits non-zero, printing no result, without a CUDA device or without the
 package beside it. The last line of a passing run is
@@ -107,6 +119,18 @@ ENTRY = {
 # the kernel phase alone
 TOOL_KERNELS = ["int8_dot", "int8_dot_loop", "mont_mul_mxu"]
 PROOF_KERNELS = [k for k in REPLACES if k not in TOOL_KERNELS and k != "mont_inv_fr"]
+# the kernels of the scan configuration, the default: every proof kernel but
+# the affine ones
+SCAN_KERNELS = [k for k in PROOF_KERNELS if not k.startswith("affine")]
+# the real circuits: constraints before the input constraints, inputs with
+# ONE, and the TestConstraintSystem digests that the JAX package's tests pin
+# (tests/test_circuits.py); timed proofs of each after its warm-up
+CIRCUITS = {
+    "spend": (100_637, 8, "34e4a634c80e4e4c6250e63b7855532e60b36d1371d4d7b1163218b69f09eb3d"),
+    "output": (31_205, 6, "93e445d7858e98c7138558df341f020aedfe75893535025587d64731e244276a"),
+    "convert": (47_358, 4, "f74b47ef6e59081548f81f5806bd15b1f4a65d2e57681e6db2b8db7eef2ff814"),
+}
+CIRCUIT_PROOFS = {"spend": 3, "output": 1, "convert": 1}
 # threads a block of the G1 complete add, each measured in a build of its
 # own: the measurement behind the size that point_add.cu keeps
 G1_BLOCKS = (96, 192)
@@ -1137,6 +1161,117 @@ def profile_proof(label, asm, params, rs, dev, card):
             log(f"[{label}]   kernel: {e.self_device_time_total / 1e3:.2f} ms {e.count} calls  {e.key[:90]}")
 
 
+# --- the real circuits --------------------------------------------------------------
+
+def circuit_phase(kind: str, dev, rng, card: str, profile: bool = False) -> dict:
+    """One real circuit through the port in the default MSM configuration:
+    its structure from the host copies, held against the pinned counts and
+    digest; parameters on the card from seeded toxic waste; bench.py's
+    fixture; one warm-up proof, whose witness records the tape; then
+    CIRCUIT_PROOFS[kind] timed proofs, each from a fresh witness, with the
+    launch counts zeroed just before them. Every timed witness must come from
+    the native tape, every timed proof must pass the host verifier with the
+    fixture's public inputs and equal the toxic-waste oracle, and every scan
+    kernel must have launched. Returns the launches and times."""
+    import torch
+
+    from masp_tpu_torch.groth16 import create_proof_from_assembly, generate_parameters
+    from masp_tpu_torch.groth16.generator import eval_at_tau
+    from masp_tpu_torch.groth16.synthesis import structure_assembly, synthesize_witness
+    from masp_tpu_torch.host.circuits.convert import Convert
+    from masp_tpu_torch.host.circuits.sapling import Output, Spend
+    from masp_tpu_torch.host.r1cs.cs import TestConstraintSystem
+    from masp_tpu_torch.host.structures import prepare_verifying_key
+    from masp_tpu_torch.host.verifier import verify_proof
+    from masp_tpu_torch.kernels import LAUNCHES, reset_launches
+    from masp_tpu_torch.ops import msm_sorted as MS
+    from masp_tpu_torch.tools.fixtures import fixture
+    from masp_tpu_torch.utils import tracing
+
+    label = f"circuit {kind}"
+    cls = {"spend": Spend, "output": Output, "convert": Convert}[kind]
+    n_pin, inputs_pin, _ = CIRCUITS[kind]
+    t0 = time.perf_counter()
+    asm = structure_assembly(cls)
+    t1 = time.perf_counter()
+    tcs = TestConstraintSystem()
+    cls().synthesize(tcs)
+    digest = tcs.hash()
+    log(f"[{label}] structure in {t1 - t0:.1f} s (input constraints included): "
+        f"{json.dumps(r1cs_counts(asm))}; TestConstraintSystem in {time.perf_counter() - t1:.1f} s: "
+        f"{tcs.num_constraints} constraints, {tcs.num_inputs} inputs, digest {digest}")
+    if (tcs.num_constraints, tcs.num_inputs, digest) != CIRCUITS[kind]:
+        raise AssertionError(f"[{label}] counts or digest differ from the pins {CIRCUITS[kind]}")
+    if (asm.num_constraints, asm.num_inputs) != (n_pin + inputs_pin, inputs_pin):
+        raise AssertionError(f"[{label}] the structure has {asm.num_constraints} constraints and "
+                             f"{asm.num_inputs} inputs, the pins {n_pin} + {inputs_pin} and {inputs_pin}")
+    tau, alpha, beta, gamma, delta = (rng.randrange(1, 1 << 250) for _ in range(5))
+    t0 = time.perf_counter()
+    params = generate_parameters(asm, tau, alpha, beta, gamma, delta, device=dev)
+    torch.cuda.synchronize()
+    log(f"[{label}] parameters on the card in {time.perf_counter() - t0:.1f} s "
+        f"(h {len(params.h)}, l {len(params.l)}, a {len(params.a)}, b {len(params.b_g1)})")
+    u, v, w = eval_at_tau(asm, tau, 1 << (asm.num_constraints - 1).bit_length())
+    pvk = prepare_verifying_key(params.vk)
+    t0 = time.perf_counter()
+    make, publics = fixture(kind)
+    log(f"[{label}] bench.py's fixture in {time.perf_counter() - t0:.2f} s; {len(publics)} public inputs")
+    rs = [(rng.randrange(1, 1 << 250), rng.randrange(1, 1 << 250)) for _ in range(1 + CIRCUIT_PROOFS[kind])]
+
+    t0 = time.perf_counter()
+    wasm, route = synthesize_witness(make())
+    t1 = time.perf_counter()
+    create_proof_from_assembly(wasm, params, *rs[0], device=dev)
+    log(f"[{label}] warm-up: witness {t1 - t0:.2f} s ({route} route; records the tape), "
+        f"proof {time.perf_counter() - t1:.2f} s; MSM configuration: "
+        f"{'affine' if MS.AFFINE_LADDER else 'scan'} ladder (the default)")
+    tracing.enable()
+    tracing.reset()
+    reset_launches()
+    runs = []
+    for r, s in rs[1:]:
+        t0 = time.perf_counter()
+        wasm, route = synthesize_witness(make())
+        t1 = time.perf_counter()
+        proof = create_proof_from_assembly(wasm, params, r, s, device=dev)
+        runs.append((route, t1 - t0, time.perf_counter() - t1, wasm, proof, r, s))
+    launches = dict(LAUNCHES)
+    stages = tracing.report()
+    tracing.enable(False)
+    for i, (route, wit_s, proof_s, *_) in enumerate(runs):
+        log(f"[{label}] proof {i + 1}: witness {1e3 * wit_s:.2f} ms (host, {route} route), proof "
+            f"{1e3 * proof_s:.2f} ms, witness + proof {1e3 * (wit_s + proof_s):.2f} ms on {card}")
+    for name, st in stages.items():
+        dev_ms = "n/a" if st["device_ms"] is None else f"{st['device_ms'] / st['count']:.2f} ms"
+        log(f"[{label}]   stage {name}: host {1e3 * st['host_s'] / st['count']:.2f} ms, stream {dev_ms} per proof")
+    log(f"[{label}] launches over {len(runs)} proofs: {json.dumps(launches)}")
+    for name in SCAN_KERNELS:
+        if launches[name] <= 0:
+            raise AssertionError(f"[{label}] kernel {name} was not launched on the proof path")
+    for route, _, _, wasm, proof, r, s in runs:
+        if route != "tape":
+            raise AssertionError(f"[{label}] the witness came from the {route} route, not the native tape")
+        if not verify_proof(pvk, proof, publics):
+            raise AssertionError(f"[{label}] a proof failed the host pairing verifier")
+        z = [int.from_bytes(row.tobytes(), "little") for row in wasm.assignment]
+        if proof != oracle_proof(u, v, w, z, tau, alpha, beta, delta, r, s, asm.num_inputs):
+            raise AssertionError(f"[{label}] a proof differs from the toxic-waste oracle")
+    log(f"[{label}] all {len(runs)} proofs pass verify_proof with the fixture's public inputs and equal "
+        f"the toxic-waste oracle")
+    if profile:
+        profile_proof(label, wasm, params, rs[1], dev, card)
+    return {"launches": launches, "witness_s": [x[1] for x in runs], "proof_s": [x[2] for x in runs]}
+
+
+def circuits_phase(dev, rng, card: str, profile: bool = False) -> dict:
+    """circuit_phase for Spend (profiled with ``profile``), Output and
+    Convert; returns each circuit's launches and times."""
+    t0 = time.perf_counter()
+    out = {kind: circuit_phase(kind, dev, rng, card, profile and kind == "spend") for kind in CIRCUITS}
+    log(f"[circuits] Spend, Output and Convert in {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 # --- main ------------------------------------------------------------------------------
 
 def ptxas_report(build) -> dict:
@@ -1246,6 +1381,11 @@ def main(argv) -> int:
                 log(f"  ptxas {' '.join([src, *defines])}: {line.strip()}")
 
     rng = random.Random(SEED)
+    if "--circuits" in argv:
+        circuits_phase(dev, rng, card, "--profile" in argv)
+        print(card)
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": 1}}))
+        return 0
     t0 = time.perf_counter()
     asm, z, publics = spend_shaped_r1cs(SEED)
     counts = r1cs_counts(asm)
@@ -1283,7 +1423,7 @@ def main(argv) -> int:
     # scan ladder with the sequential reduction; then the batch-affine
     # ladder with the wide reduction, which runs every proof kernel
     affine_kernels = [k for k in PROOF_KERNELS if k.startswith("affine")]
-    configs = {"scan": (False, [k for k in PROOF_KERNELS if k not in affine_kernels]),
+    configs = {"scan": (False, SCAN_KERNELS),
                "affine": (True, PROOF_KERNELS)}
     order = sorted(configs, key=lambda label: configs[label][0] != MS.AFFINE_LADDER)
     default, launches = MS.AFFINE_LADDER, {}
@@ -1299,6 +1439,7 @@ def main(argv) -> int:
         MS.AFFINE_LADDER = default
     if any(launches["scan"][k] for k in affine_kernels):
         raise AssertionError("[scan] the scan ladder launched the affine kernels")
+    circuits = circuits_phase(dev, rng, card, "--profile" in argv)
     leaf_per_proof(leaf_widths(asm, params, rs[1], dev), params, dev, card)
     for name, r in mont_mul_per_proof(mont_mul_widths(asm, params, rs[1], dev), dev, card).items():
         kern[name]["per_proof"] = r
@@ -1312,15 +1453,18 @@ def main(argv) -> int:
     # "ms" is per launch inside a CUDA graph with inputs from HBM; "eager_ms"
     # is CUDA events around one eager call, the host's launch included;
     # "bytes" and "ops_ms" are the two sides of the bound; "launches_by_path"
-    # holds each configuration's launches over its timed proofs; "widest" is
-    # a leaf add's pairs and ms at the main path's widest leaf launch; a
-    # product's "forms" (ms through F.mont_mul and bound per operand form),
-    # "narrow_ms" (rows: ms, inputs in L2), "per_proof" (the main path's
-    # launches timed at their widths and forms, summed) and "sass"
+    # holds each configuration's and each real circuit's launches over its
+    # timed proofs; "widest" is a leaf add's pairs and ms at the main path's
+    # widest leaf launch; a product's "forms" (ms through F.mont_mul and
+    # bound per operand form), "narrow_ms" (rows: ms, inputs in L2),
+    # "per_proof" (the main path's launches timed at their widths and forms,
+    # summed) and "sass"
     line = {"kernels": [{
         "name": name, "route": "cuda", "source": SOURCE[name], "replaces": REPLACES[name],
         "launches": k["launches"] if name in TOOL_KERNELS else path_launches(name),
-        "launches_by_path": None if name in TOOL_KERNELS else {label: launches[label][name] for label in order},
+        "launches_by_path": None if name in TOOL_KERNELS else {
+            **{label: launches[label][name] for label in order},
+            **{kind: c["launches"][name] for kind, c in circuits.items()}},
         "max_abs_err": k["max_abs_err"], "ms": k["ms"],
         "eager_ms": k["eager_ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
         "bound_by": k["bound_by"], "library_ms": k.get("library_ms"), "bytes": k["bytes"],

@@ -16,12 +16,21 @@ from masp_tpu.groth16 import generator as GEN
 from masp_tpu.groth16 import prover as P
 from masp_tpu.groth16 import reference as REF
 from masp_tpu.groth16.structures import Parameters, VerifyingKey
+from masp_tpu.primitives.pedersen import Personalization as JPersonalization
+from masp_tpu.primitives.pedersen import pedersen_hash as host_pedersen_hash
 from masp_tpu.ops import weierstrass_jax as WJ
 from masp_tpu.r1cs.cs import ONE, KeypairAssembly, ProvingAssembly, lc_var
+from masp_tpu.r1cs.gadgets import boolean as JB
+from masp_tpu.r1cs.gadgets import pedersen as JPED
 from masp_tpu.r1cs.gadgets.boolean import AllocatedBit
 from masp_tpu_torch import groth16 as TG
 from masp_tpu_torch.groth16 import prover as TP
+from masp_tpu_torch.groth16 import synthesis as TS
 from masp_tpu_torch.groth16.domain import Domain
+from masp_tpu_torch.host.primitives.pedersen import Personalization as TPersonalization
+from masp_tpu_torch.host.r1cs.cs import KeypairAssembly as TKeypairAssembly
+from masp_tpu_torch.host.r1cs.gadgets import boolean as TB
+from masp_tpu_torch.host.r1cs.gadgets import pedersen as TPED
 from masp_tpu_torch.ops import field as F
 from masp_tpu_torch.ops import msm_sorted as MS
 from masp_tpu_torch.host.structures import prepare_verifying_key
@@ -66,6 +75,25 @@ class BitsCircuit:
         out_val = (v_val * v_val + (vals[0] ^ vals[1])) % R if known else None
         out = cs.alloc_input("out", out_val)
         cs.enforce("out", lc_var(sq) + x.var, lc_var(ONE), lc_var(out))
+
+
+class PedersenBitsCircuit:
+    """A u64 split into 64 boolean wires and Pedersen-hashed in the circuit
+    (note-commitment personalization); the hash point is the public input.
+    ``mods`` = (boolean gadgets, Pedersen gadget, Personalization) of either
+    package, so that each synthesises it with its own copy."""
+
+    def __init__(self, mods, value=None):
+        self.mods = mods
+        self.value = value
+
+    def synthesize(self, cs):
+        boolean, pedersen, personalization = self.mods
+        with cs.ns("value"):
+            bits = boolean.u64_into_boolean_vec_le(cs, self.value)
+        with cs.ns("hash"):
+            point = pedersen.pedersen_hash(cs, personalization.note_commitment(), bits)
+        point.inputize(cs)
 
 
 def _host_params(circuit):
@@ -236,6 +264,32 @@ def test_split_proof_matches_jax_prover(small_window, monkeypatch):
     split = {"l_small", "a_small", "b_g1_small", "b_g2_small"}
     assert split <= set(params.device) and split <= set(tparams.device)
     assert got.write() == want.write()
+
+
+@pytest.mark.slow
+def test_gadget_circuit_proof_matches_jax_prover(small_window):
+    """The slice at a small size: a circuit of the copied gadgets with bit
+    wires, synthesised by both packages; the port's structure, generator,
+    witness and prover give masp_tpu's proof byte for byte."""
+    value = 0x0123456789ABCDEF
+    jax_mods, port_mods = (JB, JPED, JPersonalization), (TB, TPED, TPersonalization)
+    params, _ = _host_params(PedersenBitsCircuit(jax_mods))
+    cs, _ = _witness(PedersenBitsCircuit(jax_mods, value))
+    want = P.create_proof_from_assembly(cs, params, 5, 7)
+    kcs = TKeypairAssembly()
+    PedersenBitsCircuit(port_mods).synthesize(kcs)
+    TS.add_input_constraints(kcs)
+    structure = TS.assembly_from_cs(kcs)
+    assert structure.num_constraints == cs.num_constraints <= 1 << 10
+    assert TP.boolean_var_mask(structure)[structure.num_inputs :].sum() >= 64
+    tparams = TG.generate_parameters(structure, *WASTE, device="cpu")
+    asm, route = TS.synthesize_witness(PedersenBitsCircuit(port_mods, value))
+    assert route == "python"
+    got = TG.create_proof_from_assembly(asm, tparams, 5, 7, device="cpu")
+    assert got.write() == want.write()
+    u, v = host_pedersen_hash(JPersonalization.note_commitment(),
+                              [(value >> i) & 1 == 1 for i in range(64)]).to_affine()
+    assert verify_proof(prepare_verifying_key(tparams.vk), got, [u.n, v.n])
 
 
 @pytest.mark.cuda
