@@ -8,12 +8,15 @@ Groth16 circuit three times in each MSM configuration (the projective scan
 ladder, the default, then the batch-affine ladder), and then the real Spend,
 Output and Convert circuits in the default configuration, each synthesised by
 the port's copy of the host circuit stack from bench.py's seeded fixture
-(phase "circuits"). Every proof is checked with the host pairing verifier and
-against a toxic-waste oracle.
+(phase "circuits"), and last a bundle of real Spend, Convert and Output jobs
+through LocalTxProver.prove_jobs, the batch prover, at windows 1 and 2, on the
+circuits' parameters (phase "batch"). Every proof is checked with the host
+pairing verifier, and against a toxic-waste oracle or the single-proof path.
 
     python3 chip_smoke.py             # everything (one card)
     python3 chip_smoke.py --kernels   # build, kernel checks and the tools only
     python3 chip_smoke.py --circuits  # build and the real circuits only
+    python3 chip_smoke.py --batch     # build, the real circuits and the bundle
     python3 chip_smoke.py --profile   # also one profiled proof per configuration
                                       # and of the real Spend
 
@@ -131,6 +134,13 @@ CIRCUITS = {
     "convert": (47_358, 4, "f74b47ef6e59081548f81f5806bd15b1f4a65d2e57681e6db2b8db7eef2ff814"),
 }
 CIRCUIT_PROOFS = {"spend": 3, "output": 1, "convert": 1}
+# the bundle: jobs of each kind, the batch prover's windows (MASP_BATCH_WINDOW)
+# it is proved at, its seed (tools/fixtures.jobs and prove_jobs' rng) and the
+# transaction's signature hash
+BATCH_JOBS = {"spend": 3, "convert": 2, "output": 3}
+BATCH_WINDOWS = (1, 2)
+BATCH_SEED = bytes(range(7, 23))
+BATCH_SIGHASH = bytes(range(100, 132))
 # threads a block of the G1 complete add, each measured in a build of its
 # own: the measurement behind the size that point_add.cu keeps
 G1_BLOCKS = (96, 192)
@@ -1260,16 +1270,196 @@ def circuit_phase(kind: str, dev, rng, card: str, profile: bool = False) -> dict
         f"the toxic-waste oracle")
     if profile:
         profile_proof(label, wasm, params, rs[1], dev, card)
-    return {"launches": launches, "witness_s": [x[1] for x in runs], "proof_s": [x[2] for x in runs]}
+    return {"launches": launches, "witness_s": [x[1] for x in runs], "proof_s": [x[2] for x in runs],
+            "params": params}
 
 
 def circuits_phase(dev, rng, card: str, profile: bool = False) -> dict:
     """circuit_phase for Spend (profiled with ``profile``), Output and
-    Convert; returns each circuit's launches and times."""
+    Convert; returns each circuit's launches, times and Parameters."""
     t0 = time.perf_counter()
     out = {kind: circuit_phase(kind, dev, rng, card, profile and kind == "spend") for kind in CIRCUITS}
     log(f"[circuits] Spend, Output and Convert in {time.perf_counter() - t0:.1f} s")
     return out
+
+
+# --- the bundle ------------------------------------------------------------------
+
+def _per_proof(st: dict, name: str, n: int) -> str:
+    """A span's host and stream ms per proof of a batch of n."""
+    e = st.get(name)
+    if e is None:
+        return "n/a"
+    dev_ms = "n/a" if e["device_ms"] is None else f"{e['device_ms'] / n:.2f}"
+    return f"{1e3 * e['host_s'] / n:.2f} / {dev_ms}"
+
+
+def batch_phase(circuits: dict, dev, card: str) -> dict:
+    """A seeded bundle of BATCH_JOBS Spend, Convert and Output jobs
+    (tools/fixtures.jobs) proved through LocalTxProver.prove_jobs on the
+    circuits phase's three Parameters, once at each of BATCH_WINDOWS, from an
+    XorShiftRng seeded alike each time, with the launch counts zeroed just
+    before each; then one Spend job through the singular spend_proof. Every
+    witness must come from the native tape, every batch proof must equal the
+    single-proof path's proof of the same witness with the (r, s) redrawn as
+    prove_jobs draws them, pass the verification context (spend authorising
+    signature and verify_proof with its job's public inputs) and survive
+    Proof.read as 192 bytes; the self-check (verify_proofs_batch) must have
+    passed, the binding signature over the bundle's value balance must pass
+    final_check, and every scan kernel must have launched in each run. Logs,
+    per window and kind, wall time per proof, the witness time, the setup,
+    inputs and wait spans, beside the circuits phase's one-at-a-time times.
+    Returns the launches per window."""
+    from masp_tpu_torch.groth16 import prover as TP
+    from masp_tpu_torch.groth16 import sapling_prover as SP
+    from masp_tpu_torch.groth16.local_prover import LocalTxProver
+    from masp_tpu_torch.host.primitives.sapling import spend_sig
+    from masp_tpu_torch.host.rng import XorShiftRng, random_scalar
+    from masp_tpu_torch.host.structures import Proof
+    from masp_tpu_torch.host.verifier import verify_proof
+    from masp_tpu_torch.kernels import LAUNCHES, reset_launches
+    from masp_tpu_torch.tools.fixtures import jobs
+    from masp_tpu_torch.utils import tracing
+
+    kinds = ("spend", "convert", "output")
+    t0 = time.perf_counter()
+    bundle = jobs(*(BATCH_JOBS[k] for k in kinds), BATCH_SEED)
+    prover = LocalTxProver(*(circuits[k]["params"] for k in ("spend", "output", "convert")))
+    log(f"[batch] bundle of {json.dumps(BATCH_JOBS)} jobs and the prover's verifying keys in "
+        f"{time.perf_counter() - t0:.1f} s; value balance {bundle['value_balance']}")
+    kind_of = {id(circuits[k]["params"]): k for k in kinds}
+    batch_prove, batch_verify = TP.create_proofs_from_assemblies, SP.verify_proofs_batch
+    runs, witnesses, checked = {}, {}, []
+
+    def timed(css, params, rss, *args, **kwargs):
+        """The batch prover, timed per kind, its witnesses kept."""
+        kind = kind_of[id(params)]
+        witnesses[kind] = []
+
+        def keep(css):
+            for asm in css:
+                witnesses[kind].append(asm)
+                yield asm
+
+        tracing.reset()
+        before = dict(LAUNCHES)
+        t0 = time.perf_counter()
+        proofs = batch_prove(keep(css), params, rss, *args, **kwargs)
+        run[kind] = {"wall_s": time.perf_counter() - t0, "n": len(proofs), "stages": tracing.report(),
+                     "launches": {k: LAUNCHES[k] - before[k] for k in LAUNCHES}}
+        return proofs
+
+    def self_check(*args, **kwargs):
+        ok = batch_verify(*args, **kwargs)
+        checked.append((len(args[2]), ok))
+        return ok
+
+    TP.create_proofs_from_assemblies, SP.verify_proofs_batch = timed, self_check
+    tracing.enable()
+    try:
+        for window in BATCH_WINDOWS:
+            os.environ["MASP_BATCH_WINDOW"] = str(window)
+            run, checked[:] = {}, []
+            ctx = prover.new_sapling_proving_context()
+            rng = XorShiftRng.from_seed(BATCH_SEED)
+            reset_launches()
+            t0 = time.perf_counter()
+            results = prover.prove_jobs(ctx, *(bundle[k] for k in kinds), rng)
+            run["wall_s"] = time.perf_counter() - t0
+            run["launches"] = dict(LAUNCHES)
+            run["results"] = dict(zip(kinds, results))
+            run["self_check"] = list(checked)
+            run["binding_sig"] = prover.binding_sig(ctx, bundle["value_balance"], BATCH_SIGHASH, rng)
+            runs[window] = run
+    finally:
+        TP.create_proofs_from_assemblies, SP.verify_proofs_batch = batch_prove, batch_verify
+        os.environ.pop("MASP_BATCH_WINDOW", None)
+        tracing.enable(False)
+
+    for window, run in runs.items():
+        log(f"[batch] window {window}: prove_jobs {run['wall_s']:.3f} s for "
+            f"{sum(BATCH_JOBS.values())} proofs on {card}")
+        for kind in kinds:
+            r, st = run[kind], run[kind]["stages"]
+            single = circuits[kind]
+            one = [1e3 * (w + p) for w, p in zip(single["witness_s"], single["proof_s"])]
+            log(f"[batch]   window {window} {kind}: {1e3 * r['wall_s'] / r['n']:.2f} ms per proof, witness "
+                f"included, over {r['n']}; witness/tape host {_per_proof(st, 'witness/tape', r['n'])}; "
+                f"setup {_per_proof(st, 'setup', r['n'])}; inputs {_per_proof(st, 'inputs', r['n'])}; "
+                f"h_pipeline {_per_proof(st, 'h_pipeline', r['n'])}; wait {_per_proof(st, 'wait', r['n'])}; "
+                f"assemble {_per_proof(st, 'assemble', r['n'])} (host / stream ms per proof); one at a time "
+                f"(circuits phase, witness + proof): {[round(x, 2) for x in one]} ms")
+            per = {k: round(n / r["n"], 2) for k, n in r["launches"].items() if n}
+            one = {k: round(n / len(single["proof_s"]), 2) for k, n in single["launches"].items() if n}
+            log(f"[batch]   window {window} {kind}: launches per proof {json.dumps(per)}; one at a time "
+                f"{json.dumps(one)}")
+            log(f"[batch]   window {window} {kind}: inputs host ms of each proof "
+                f"{[round(1e3 * x, 2) for x in st['inputs']['host_each_s']]}")
+            routes = {name: e["count"] for name, e in st.items() if name.startswith("witness/")}
+            if routes != {"witness/tape": BATCH_JOBS[kind]}:
+                raise AssertionError(f"[batch] window {window} {kind}: witness routes {routes}, "
+                                     f"not {BATCH_JOBS[kind]} from the native tape")
+        log(f"[batch] window {window} launches: {json.dumps(run['launches'])}")
+        for name in SCAN_KERNELS:
+            if run["launches"][name] <= 0:
+                raise AssertionError(f"[batch] window {window}: kernel {name} was not launched")
+        want = [(BATCH_JOBS["spend"], True), (BATCH_JOBS["convert"], True)]
+        if run["self_check"] != want:
+            raise AssertionError(f"[batch] window {window}: the self-check ran {run['self_check']}, not {want}")
+
+    # the single-proof path on the same witnesses, with the (r, s) prove_jobs drew
+    rng = XorShiftRng.from_seed(BATCH_SEED)
+    rs = {k: [(random_scalar(rng).n, random_scalar(rng).n) for _ in bundle[k]] for k in kinds}
+    params = {k: circuits[k]["params"] for k in kinds}
+    for kind in kinds:
+        for i, (asm, (r, s)) in enumerate(zip(witnesses[kind], rs[kind])):
+            single = TP.create_proof_from_assembly(asm, params[kind], r, s, device=dev).write()
+            for window, run in runs.items():
+                blob = run["results"][kind][i][0]
+                if blob != single:
+                    raise AssertionError(f"[batch] window {window}: {kind} proof {i} differs from the single-proof path")
+                if len(blob) != 192 or Proof.read(blob).write() != blob:
+                    raise AssertionError(f"[batch] window {window}: {kind} proof {i} does not read back from 192 bytes")
+    log(f"[batch] every proof of both windows equals the single-proof path's and reads back from 192 bytes")
+
+    # a verifier's view of the bundle (the windows' proofs are equal), and of
+    # each window's binding signature
+    t0 = time.perf_counter()
+    check = SP.SaplingVerificationContext()
+    res = runs[BATCH_WINDOWS[0]]["results"]
+    vrng = XorShiftRng.from_seed(BATCH_SEED[::-1])
+    for (blob, cv, rk), job, (anchor, nf), ask in zip(res["spend"], bundle["spend"],
+                                                     bundle["verifier"]["spend"], bundle["ask"]):
+        sig = spend_sig(ask, job["ar"], BATCH_SIGHASH, vrng)
+        if not check.check_spend(cv, anchor, nf, rk, BATCH_SIGHASH, sig, Proof.read(blob), prover.spend_vk):
+            raise AssertionError("[batch] a spend description fails verification")
+    for (blob, cv), anchor in zip(res["convert"], bundle["verifier"]["convert"]):
+        if not check.check_convert(cv, anchor, Proof.read(blob), prover.convert_vk):
+            raise AssertionError("[batch] a convert description fails verification")
+    for (blob, cv), (cmu, epk) in zip(res["output"], bundle["verifier"]["output"]):
+        if not check.check_output(cv, cmu, epk, Proof.read(blob), prover.output_vk):
+            raise AssertionError("[batch] an output description fails verification")
+    for window, run in runs.items():
+        if not check.final_check(bundle["value_balance"], BATCH_SIGHASH, run["binding_sig"]):
+            raise AssertionError(f"[batch] window {window}: the binding signature fails final_check")
+    log(f"[batch] every description passes check_spend / check_convert / check_output (verify_proof "
+        f"with its job's public inputs), each window's binding signature final_check, and the "
+        f"self-check passed: {time.perf_counter() - t0:.1f} s of host verification")
+
+    job = bundle["spend"][0]
+    ctx = prover.new_sapling_proving_context()
+    t0 = time.perf_counter()
+    blob, cv, rk = prover.spend_proof(ctx, *(job[f] for f in (
+        "proof_generation_key", "diversifier", "rseed", "ar", "asset_type", "value", "anchor",
+        "merkle_path", "rcv")))
+    wall = time.perf_counter() - t0
+    anchor, nf = bundle["verifier"]["spend"][0]
+    if len(blob) != 192 or not verify_proof(prover.spend_vk, Proof.read(blob),
+                                            SP.spend_public_inputs(rk.point, cv, anchor, nf)):
+        raise AssertionError("[batch] the singular spend_proof's proof fails verify_proof")
+    log(f"[batch] singular spend_proof: {1e3 * wall:.2f} ms (witness, proof and its self-verification), "
+        f"192 bytes, passes verify_proof on {card}")
+    return {window: run["launches"] for window, run in runs.items()}
 
 
 # --- main ------------------------------------------------------------------------------
@@ -1381,8 +1571,10 @@ def main(argv) -> int:
                 log(f"  ptxas {' '.join([src, *defines])}: {line.strip()}")
 
     rng = random.Random(SEED)
-    if "--circuits" in argv:
-        circuits_phase(dev, rng, card, "--profile" in argv)
+    if "--circuits" in argv or "--batch" in argv:
+        circuits = circuits_phase(dev, rng, card, "--profile" in argv)
+        if "--batch" in argv:
+            batch_phase(circuits, dev, card)
         print(card)
         print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": 1}}))
         return 0
@@ -1440,6 +1632,7 @@ def main(argv) -> int:
     if any(launches["scan"][k] for k in affine_kernels):
         raise AssertionError("[scan] the scan ladder launched the affine kernels")
     circuits = circuits_phase(dev, rng, card, "--profile" in argv)
+    batch = batch_phase(circuits, dev, card)
     leaf_per_proof(leaf_widths(asm, params, rs[1], dev), params, dev, card)
     for name, r in mont_mul_per_proof(mont_mul_widths(asm, params, rs[1], dev), dev, card).items():
         kern[name]["per_proof"] = r
@@ -1454,8 +1647,9 @@ def main(argv) -> int:
     # is CUDA events around one eager call, the host's launch included;
     # "bytes" and "ops_ms" are the two sides of the bound; "launches_by_path"
     # holds each configuration's and each real circuit's launches over its
-    # timed proofs; "widest" is a leaf add's pairs and ms at the main path's
-    # widest leaf launch; a product's "forms" (ms through F.mont_mul and
+    # timed proofs, and the bundle's at window 2, the default ("batch");
+    # "widest" is a leaf add's pairs and ms at the main path's widest leaf
+    # launch; a product's "forms" (ms through F.mont_mul and
     # bound per operand form), "narrow_ms" (rows: ms, inputs in L2),
     # "per_proof" (the main path's launches timed at their widths and forms,
     # summed) and "sass"
@@ -1464,7 +1658,8 @@ def main(argv) -> int:
         "launches": k["launches"] if name in TOOL_KERNELS else path_launches(name),
         "launches_by_path": None if name in TOOL_KERNELS else {
             **{label: launches[label][name] for label in order},
-            **{kind: c["launches"][name] for kind, c in circuits.items()}},
+            **{kind: c["launches"][name] for kind, c in circuits.items()},
+            "batch": batch[BATCH_WINDOWS[-1]][name]},
         "max_abs_err": k["max_abs_err"], "ms": k["ms"],
         "eager_ms": k["eager_ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
         "bound_by": k["bound_by"], "library_ms": k.get("library_ms"), "bytes": k["bytes"],

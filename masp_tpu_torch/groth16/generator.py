@@ -4,8 +4,10 @@
 Port of masp_tpu/groth16/generator.py for the port's neutral ``Assembly``:
 the QAP polynomials are evaluated at tau on the host (Lagrange basis over
 the domain), and the per-query fixed-base scalar multiplications run on the
-device through the point-add kernel (ops/msm.fixed_base_scalarmuls), then
-one batched inversion per query makes them affine.
+device through the point-add kernel (ops/msm.fixed_base_scalarmuls) in
+chunks of at most 2^16 G1 or 2^14 G2 scalars, then one batched inversion
+per chunk makes them affine. ``generate_random_parameters`` draws the toxic
+waste and synthesises the structure of a circuit of the host copies.
 """
 
 from __future__ import annotations
@@ -16,7 +18,10 @@ import torch
 from masp_tpu_torch import resolve_device
 from masp_tpu_torch.groth16.domain import Domain
 from masp_tpu_torch.groth16.params import Assembly, Parameters
+from masp_tpu_torch.groth16.synthesis import add_input_constraints, assembly_from_cs
 from masp_tpu_torch.host.bls12_381 import G1, G2, R
+from masp_tpu_torch.host.r1cs.cs import KeypairAssembly
+from masp_tpu_torch.host.rng import random_scalar
 from masp_tpu_torch.host.structures import VerifyingKey
 from masp_tpu_torch.ops import msm as M
 from masp_tpu_torch.ops import weierstrass as W
@@ -90,14 +95,24 @@ def _affine_rows(fops, proj):
     return torch.cat([c.reshape(n, -1) for c in coords], dim=1)
 
 
+# scalars a chunk of batch_mul_gen, per group: the chunks of the JAX package's
+# batch_g1_mul_gen and batch_g2_mul_gen. Its _chunk_pad, which pads a chunk to
+# a power of two so that XLA compiles few programs, has no use here: PyTorch
+# compiles nothing, and the padding only adds work
+CHUNK = {1: 1 << 16, 2: 1 << 14}
+
+
 def batch_mul_gen(fops, table_rows, scalars: list[int]) -> np.ndarray:
-    """[s_i] G for the table's base G, as affine-encoded packed rows (numpy)."""
+    """[s_i] G for the table's base G, as affine-encoded packed rows (numpy),
+    CHUNK[group] scalars at a time."""
     dev = table_rows.device
-    if not scalars:
-        return np.zeros((0, W.rowlen(fops)), dtype=np.int32)
-    digits = torch.as_tensor(M.scalars_to_digits(scalars, 8, 256), device=dev).to(torch.int64)
-    proj = M.fixed_base_scalarmuls(fops, table_rows, digits)
-    return _affine_rows(fops, proj).cpu().numpy()
+    out = [np.zeros((0, W.rowlen(fops)), dtype=np.int32)]
+    for off in range(0, len(scalars), CHUNK[fops.GROUP]):
+        part = scalars[off : off + CHUNK[fops.GROUP]]
+        digits = torch.as_tensor(M.scalars_to_digits(part, 8, 256), device=dev).to(torch.int64)
+        proj = M.fixed_base_scalarmuls(fops, table_rows, digits)
+        out.append(_affine_rows(fops, proj).cpu().numpy())
+    return np.concatenate(out)
 
 
 def generate_parameters(asm: Assembly, tau: int, alpha: int, beta: int, gamma: int,
@@ -145,4 +160,24 @@ def generate_parameters(asm: Assembly, tau: int, alpha: int, beta: int, gamma: i
     )
 
 
-__all__ = ["generate_parameters", "eval_at_tau", "densities", "coeff_ints", "batch_mul_gen"]
+def generate_random_parameters(circuit, rng, device="cuda") -> Parameters:
+    """Parameters of ``circuit`` (a circuit of the host copies) for toxic
+    waste drawn from ``rng``: five non-zero scalars, tau, alpha, beta, gamma
+    and delta in that order, as the JAX package draws them."""
+    def nonzero():
+        while True:
+            x = random_scalar(rng)
+            if not x.is_zero():
+                return x.n
+
+    waste = [nonzero() for _ in range(5)]
+    cs = KeypairAssembly()
+    circuit.synthesize(cs)
+    add_input_constraints(cs)
+    return generate_parameters(assembly_from_cs(cs), *waste, device=device)
+
+
+__all__ = [
+    "generate_parameters", "generate_random_parameters", "eval_at_tau", "densities",
+    "coeff_ints", "batch_mul_gen",
+]

@@ -7,7 +7,9 @@ package without the port seeing any of its objects:
 * ``Parameters``: the verifying key as (the port's) host points, and each
   proving query as packed [X | Y | Z] limb rows (n, 72) on G1 and (n, 144)
   on G2, int32 16-bit Montgomery limbs, identity as (0, 1, 0). Device copies
-  are cached in ``device`` by the prover.
+  are cached in ``device`` by the prover. ``params_from_host`` /
+  ``params_to_host`` carry them to and from the host ``Parameters`` of
+  ``host/structures.py``, which read and write bellman's file format.
 * ``Assembly``: the R1CS of one proof: the CSR of the A | B | C rows
   (indptr over 3 n rows, variable indices into inputs ++ aux, (nnz, 4)
   uint64 little-endian coefficients) and the (n_vars, 4) uint64 assignment,
@@ -19,9 +21,12 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 
 import numpy as np
+import torch
 
+from masp_tpu_torch.host import structures as HS
 from masp_tpu_torch.host.structures import VerifyingKey
 from masp_tpu_torch.ops import weierstrass as W
+from masp_tpu_torch.ops.projective import unpack_rows
 
 @dataclass
 class Parameters:
@@ -70,6 +75,25 @@ def params_from_arrays(vk_g1, vk_g2, ic, h, l, a, b_g1, b_g2) -> Parameters:
                       b_g1=_pack(b_g1), b_g2=_pack(b_g2))
 
 
+def params_from_host(p: HS.Parameters) -> Parameters:
+    """The port's Parameters of host Parameters, as ``HS.Parameters.read``
+    gives them from a bellman-format file."""
+    enc1, enc2 = W.encode_g1_points, W.encode_g2_points
+    return Parameters(vk=p.vk, h=_pack(enc1(p.h)), l=_pack(enc1(p.l)), a=_pack(enc1(p.a)),
+                      b_g1=_pack(enc1(p.b_g1)), b_g2=_pack(enc2(p.b_g2)))
+
+
+def params_to_host(p: Parameters) -> HS.Parameters:
+    """Host Parameters of the port's, so that ``write`` gives the bellman
+    format; the inverse of ``params_from_host``."""
+    def dec(rows, group):
+        decode = W.decode_g1_points if group == 1 else W.decode_g2_points
+        return decode(*unpack_rows(group, torch.as_tensor(rows)))
+
+    return HS.Parameters(vk=p.vk, h=dec(p.h, 1), l=dec(p.l, 1), a=dec(p.a, 1),
+                         b_g1=dec(p.b_g1, 1), b_g2=dec(p.b_g2, 2))
+
+
 def assembly_from_arrays(num_inputs: int, indptr, var_idx, coeffs, assignment=None,
                          num_vars: int | None = None) -> Assembly:
     """The port's Assembly from the arrays the JAX package's ``_csr_for``
@@ -98,4 +122,7 @@ def assembly_from_arrays(num_inputs: int, indptr, var_idx, coeffs, assignment=No
     )
 
 
-__all__ = ["Parameters", "Assembly", "params_from_arrays", "assembly_from_arrays"]
+__all__ = [
+    "Parameters", "Assembly", "params_from_arrays", "params_from_host", "params_to_host",
+    "assembly_from_arrays",
+]

@@ -6,9 +6,11 @@ boolean split of the l/a/b queries, the on-device a/b/c evaluation, and the
 sorted MSM on the projective scan ladder with the sequential bucket
 reduction (``ops.msm_sorted.AFFINE_LADDER``; set it True for the reference
 accelerator's batch-affine ladder with the wide reduction, which the H100
-runs slower). Everything is enqueued on the
-current CUDA stream; the five query results are made affine on the device
-and fetched once, then the proof is assembled on the host.
+runs slower). A proof is enqueued on the current CUDA stream, its inputs
+copied in from pinned host memory, its five query results made affine on the
+device and copied out into pinned host memory, all without waiting; then it
+is drained: the host waits for its copies and assembles the proof. The batch
+prover keeps a window of proofs enqueued ahead of the one it drains.
 
 Departures from the reference that leave every result as it is: the
 windows of an MSM run batched (ops/msm_sorted.py), the three a/b/c NTTs run
@@ -18,14 +20,18 @@ as one batch of four.
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import torch
 
 from masp_tpu_torch import resolve_device
+from masp_tpu_torch.groth16 import synthesis as S
 from masp_tpu_torch.groth16.domain import Domain
 from masp_tpu_torch.groth16.generator import coeff_ints, densities
 from masp_tpu_torch.groth16.params import Assembly, Parameters
 from masp_tpu_torch.host.bls12_381 import R
+from masp_tpu_torch.host.rng import random_scalar
 from masp_tpu_torch.host.structures import Proof
 from masp_tpu_torch.ops import field as F
 from masp_tpu_torch.ops import msm_sorted as MS
@@ -44,6 +50,8 @@ MSM_C = 8
 MSM_SPLIT_MIN = 32768
 
 G1_QUERIES = ("h", "l", "a", "b_g1")
+# the fetch's groups: (group ops, queries, host decoder of affine limbs)
+GROUPS = ((W.G1Ops, G1_QUERIES, W.decode_affine_g1), (W.G2Ops, ("b_g2",), W.decode_affine_g2))
 
 
 def _next_pow2(n: int) -> int:
@@ -317,56 +325,95 @@ def _msms(params: Parameters, inputs: dict, h_limbs):
     return out
 
 
-def _fetch(parts: dict) -> dict:
-    """Make every result row affine on the device (one batched inversion per
-    group), copy them to the host (the proof's one synchronisation), and sum
-    each query's parts."""
-    groups = ((W.G1Ops, G1_QUERIES, W.decode_affine_g1), (W.G2Ops, ("b_g2",), W.decode_affine_g2))
-    affine = []
-    for fops, names, _ in groups:
+def _to_device(host: dict, dev) -> tuple[dict, list]:
+    """Copy the host arrays to ``dev`` without waiting: on a card each goes
+    through a pinned staging buffer and an asynchronous copy (a copy from
+    pageable memory would wait for the work queued before it, the proofs
+    still in flight). Returns the device tensors and the staging buffers,
+    which the caller keeps until the copies have run."""
+    if dev.type != "cuda":
+        return {k: torch.as_tensor(v, device=dev) for k, v in host.items()}, []
+    staged = {k: torch.from_numpy(v).pin_memory() for k, v in host.items()}
+    return {k: t.to(dev, non_blocking=True) for k, t in staged.items()}, list(staged.values())
+
+
+def _to_host(t):
+    """An asynchronous copy of device tensor ``t`` into pinned host memory."""
+    if not t.is_cuda:
+        return t
+    out = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    return out.copy_(t, non_blocking=True)
+
+
+def _fetch_async(parts: dict):
+    """Enqueue the device half of the fetch: every result row made affine
+    (one batched inversion per group) and copied to host memory. Returns
+    the host coordinates per group and, on a card, the event recorded after
+    the copies, the one thing the host must wait for."""
+    coords = []
+    for fops, names, _ in GROUPS:
         rows = torch.stack([r for q in names for r in parts[q]])
-        affine.append(W.to_affine(fops, unpack_rows(fops.GROUP, rows)))
+        coords.append(tuple(_to_host(c) for c in W.to_affine(fops, unpack_rows(fops.GROUP, rows))))
+    event = None
+    if rows.is_cuda:
+        event = torch.cuda.Event()
+        event.record()
+    return coords, event
+
+
+def _sum_parts(coords, n_parts: dict) -> dict:
+    """Decode the host coordinates and sum each query's parts."""
     res = {}
-    for (_, names, dec), (x, y) in zip(groups, affine):
-        pts = dec(x.cpu(), y.cpu())
+    for (_, names, dec), (x, y) in zip(GROUPS, coords):
+        pts = dec(x, y)
         i = 0
         for q in names:
             acc = pts[i]
-            for p in pts[i + 1 : i + len(parts[q])]:
+            for p in pts[i + 1 : i + n_parts[q]]:
                 acc = acc + p
-            i += len(parts[q])
+            i += n_parts[q]
             res[q] = acc
     return res
 
 
-def create_proof_from_assembly(asm: Assembly, params: Parameters, r: int, s: int,
-                               device="cuda") -> Proof:
-    """Groth16 proof of the witness in ``asm`` with randomisers (r, s)."""
+def _enqueue(asm: Assembly, params: Parameters, r: int, s: int, device) -> dict:
+    """Enqueue one proof on the device, from its inputs' copies to the
+    copies of its results, without waiting for the device; ``_drain``
+    finishes it."""
     if asm.assignment is None:
         raise ValueError("the assembly carries no witness")
-    prepare_device_params(params, device)
-    prepare_split_queries(params, asm)
-    dev = params.device["dev"]
-    st = _structure(params.device, asm)
-    m = st["m"]
-    if len(params.h) != m - 1:
-        raise ValueError(f"h query has {len(params.h)} points, the domain needs {m - 1}")
-    dom = params.device.get("domain")
-    if dom is None or dom.m != m:
-        dom = params.device["domain"] = Domain(m, device=dev)
-
-    # every host-to-device copy before the first launch: a copy from
-    # pageable memory would otherwise wait for the work queued before it
+    with span("setup"):
+        prepare_device_params(params, device)
+        prepare_split_queries(params, asm)
+        dev = params.device["dev"]
+        st = _structure(params.device, asm)
+        m = st["m"]
+        if len(params.h) != m - 1:
+            raise ValueError(f"h query has {len(params.h)} points, the domain needs {m - 1}")
+        dom = params.device.get("domain")
+        if dom is None or dom.m != m:
+            dom = params.device["domain"] = Domain(m, device=dev)
     with span("inputs", dev):
-        inputs = {k: torch.as_tensor(v, device=dev) for k, v in _host_inputs(params, asm, st).items()}
+        inputs, staged = _to_device(_host_inputs(params, asm, st), dev)
     with span("h_pipeline", dev):
         h_coeffs = _abc_h(dom, st, inputs["v16"])
         h_limbs = _h_scalar_input(h_coeffs, m, params.device["h"].shape[0])
     parts = _msms(params, inputs, h_limbs)
     with span("fetch", dev):
-        ans = _fetch(parts)
+        coords, event = _fetch_async(parts)
+    return {"coords": coords, "event": event, "staged": staged, "r": r, "s": s,
+            "n_parts": {q: len(p) for q, p in parts.items()}, "vk": params.vk}
+
+
+def _drain(pending: dict) -> Proof:
+    """Wait for an enqueued proof's results to reach the host (the proof's
+    one synchronisation) and assemble it."""
+    with span("wait"):
+        if pending["event"] is not None:
+            pending["event"].synchronize()
     with span("assemble"):
-        vk = params.vk
+        ans = _sum_parts(pending["coords"], pending["n_parts"])
+        vk, r, s = pending["vk"], pending["r"], pending["s"]
         g_a = vk.delta_g1 * r + vk.alpha_g1 + ans["a"]
         g_b = vk.delta_g2 * s + vk.beta_g2 + ans["b_g2"]
         g_c = vk.delta_g1 * (r * s % R) + vk.alpha_g1 * s + vk.beta_g1 * r
@@ -374,7 +421,60 @@ def create_proof_from_assembly(asm: Assembly, params: Parameters, r: int, s: int
     return Proof(a=g_a, b=g_b, c=g_c)
 
 
+def create_proof_from_assembly(asm: Assembly, params: Parameters, r: int, s: int,
+                               device="cuda") -> Proof:
+    """Groth16 proof of the witness in ``asm`` with randomisers (r, s)."""
+    return _drain(_enqueue(asm, params, r, s, device))
+
+
+def create_proofs_from_assemblies(cs_list, params: Parameters, rs_list, device="cuda") -> list[Proof]:
+    """Groth16 proofs of several witnesses of one circuit against one
+    Parameters, the i-th with randomisers rs_list[i]. At most
+    MASP_BATCH_WINDOW proofs (2 by default) are in flight: proof i is drained
+    (its wait and host assembly) only once the window is full, after the
+    proofs behind it are enqueued, and the rest at the end. ``cs_list`` may
+    be a lazy iterable, so that witness i + 1 is synthesised while proof i
+    runs. Every witness must have the parameters' domain (else ValueError)."""
+    rs_list = list(rs_list)
+    if not rs_list:
+        return []
+    window = int(os.environ.get("MASP_BATCH_WINDOW", "2"))
+    m = len(params.h) + 1
+    pending, proofs = [], []
+    for asm, (r, s) in zip(cs_list, rs_list):
+        if _next_pow2(asm.num_constraints) != m:
+            raise ValueError(f"a witness of domain {_next_pow2(asm.num_constraints)} in a batch of "
+                             f"domain {m}: one domain per call")
+        if len(pending) >= window:
+            proofs.append(_drain(pending.pop(0)))
+        pending.append(_enqueue(asm, params, r, s, device))
+    while pending:
+        proofs.append(_drain(pending.pop(0)))
+    return proofs
+
+
+def synthesize_witness(circuit, use_tape: bool | None = None) -> Assembly:
+    """The full assignment of one circuit instance: the native witness tape
+    where it can replay the circuit (``use_tape``, by default
+    MASP_WITNESS_TAPE, "1" unless set), else the Python gadget walk. The
+    route shows in the span it opens, "witness/tape" or "witness/python"."""
+    if use_tape is None:
+        use_tape = os.environ.get("MASP_WITNESS_TAPE", "1") == "1"
+    return S.synthesize_witness(circuit, use_tape)[0]
+
+
+def create_proof(circuit, params: Parameters, r: int, s: int, device="cuda") -> Proof:
+    return create_proof_from_assembly(synthesize_witness(circuit), params, r, s, device)
+
+
+def create_random_proof(circuit, params: Parameters, rng, device="cuda") -> Proof:
+    r = random_scalar(rng).n
+    s = random_scalar(rng).n
+    return create_proof(circuit, params, r, s, device)
+
+
 __all__ = [
-    "create_proof_from_assembly", "prepare_device_params", "prepare_split_queries",
-    "boolean_var_mask", "h_pipeline", "MSM_C", "MSM_SPLIT_MIN",
+    "create_proof", "create_random_proof", "create_proof_from_assembly",
+    "create_proofs_from_assemblies", "synthesize_witness", "prepare_device_params",
+    "prepare_split_queries", "boolean_var_mask", "h_pipeline", "MSM_C", "MSM_SPLIT_MIN",
 ]

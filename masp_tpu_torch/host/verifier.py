@@ -1,5 +1,7 @@
-# Copy of verify_proof from masp_tpu/groth16/verifier.py, verbatim apart from
-# import paths (the batch verifier is not copied); the port imports nothing of
+# Copy of masp_tpu/groth16/verifier.py, verbatim apart from import paths and one
+# branch, marked below: verify_proofs_batch's device pairing (use_device_pairing)
+# raises NotImplementedError until the port has a device pairing (ROADMAP queue 1,
+# item 4); it never falls through to the host pairing. The port imports nothing of
 # masp_tpu.
 """Groth16 verification: single and randomized-batch.
 
@@ -37,4 +39,53 @@ def verify_proof(pvk: PreparedVerifyingKey, proof: Proof, public_inputs: list[in
     return final_exponentiation(ml) == pvk.alpha_g1_beta_g2
 
 
-__all__ = ["verify_proof"]
+def verify_proofs_batch(
+    pvk: PreparedVerifyingKey,
+    rng,
+    proofs: list[Proof],
+    public_inputs: list[list[int]],
+    use_device_pairing: bool = False,
+) -> bool:
+    """Random linear combination batch verification:
+    prod_i e(z_i A_i, B_i) == (alpha*beta)^(sum z_i) * e(sum z_i acc_i, gamma)
+                              * e(sum z_i C_i, delta)."""
+    if len(proofs) != len(public_inputs):
+        return False
+    for pi in public_inputs:
+        if len(pi) + 1 != len(pvk.ic):
+            return False
+    zs = [int.from_bytes(rng.fill_bytes(16), "little") for _ in proofs]
+
+    # Fold the random coefficients into the IC scalars first:
+    #   sum_i z_i (IC_0 + sum_j inp_ij IC_j)
+    #     = (sum_i z_i) IC_0 + sum_j (sum_i z_i inp_ij) IC_j
+    # — the identical group element with len(ic) scalar muls instead of
+    # B * len(ic) (scalar arithmetic is mod R = the group order).
+    sum_z = 0
+    ic_scalars = [0] * (len(pvk.ic) - 1)
+    acc_delta = G1.identity()
+    pairs = []
+    for proof, inputs, z in zip(proofs, public_inputs, zs):
+        sum_z = (sum_z + z) % R
+        for j, inp in enumerate(inputs):
+            ic_scalars[j] = (ic_scalars[j] + z * inp) % R
+        acc_delta = acc_delta + proof.c * z
+        pairs.append((proof.a * z, proof.b))
+    acc_gamma = G1.multi_scalar_mul(list(pvk.ic), [sum_z] + ic_scalars)
+
+    pairs.append((acc_gamma, pvk.neg_gamma_g2))
+    pairs.append((acc_delta, pvk.neg_delta_g2))
+    if use_device_pairing and pvk.alpha_g1 is not None:
+        # departs from the source: no device pairing in the port yet
+        raise NotImplementedError(
+            "the device pairing is not ported yet (ROADMAP queue 1, item 4)"
+        )
+        # end of departure
+    try:
+        ml = multi_miller_loop(pairs)
+    except DegeneratePairingInput:
+        return False
+    return final_exponentiation(ml) == pvk.alpha_g1_beta_g2.pow(sum_z)
+
+
+__all__ = ["verify_proof", "verify_proofs_batch"]

@@ -4,7 +4,8 @@
 builds them: each fixture returns (make_circuit, public_inputs), where
 make_circuit() gives a fresh circuit instance with its full witness.
 ``fixture(kind)`` seeds an XorShiftRng with bench.py's seed, so its instance
-equals the one bench.py proves."""
+equals the one bench.py proves. ``jobs`` gives a seeded bundle of Spend,
+Convert and Output jobs, as ``SaplingProvingContext.prove_jobs`` takes them."""
 
 from __future__ import annotations
 
@@ -16,7 +17,7 @@ BENCH_SEED = bytes(range(16))
 def _spend_fixture(rng):
     from masp_tpu_torch.host.circuits.sapling import Spend
     from masp_tpu_torch.host.fields import Scalar
-    from masp_tpu_torch.groth16.public_inputs import spend_public_inputs
+    from masp_tpu_torch.groth16.sapling_prover import spend_public_inputs
     from masp_tpu_torch.host.primitives.asset_type import AssetType
     from masp_tpu_torch.host.primitives.keys import ExpandedSpendingKey
     from masp_tpu_torch.host.primitives.sapling import Diversifier, Note, Rseed, merkle_hash
@@ -80,7 +81,7 @@ def _convert_fixture(rng):
     (pedersen hash of the asset generator bits) in a 32-deep tree."""
     from masp_tpu_torch.host.circuits.convert import Convert
     from masp_tpu_torch.host.fields import Scalar
-    from masp_tpu_torch.groth16.public_inputs import convert_public_inputs
+    from masp_tpu_torch.groth16.sapling_prover import convert_public_inputs
     from masp_tpu_torch.host.primitives.asset_type import AssetType
     from masp_tpu_torch.host.primitives.pedersen import Personalization, pedersen_hash
     from masp_tpu_torch.host.primitives.sapling import merkle_hash
@@ -116,7 +117,7 @@ def _convert_fixture(rng):
 
 def _output_fixture(rng):
     from masp_tpu_torch.host.circuits.sapling import Output
-    from masp_tpu_torch.groth16.public_inputs import output_public_inputs
+    from masp_tpu_torch.groth16.sapling_prover import output_public_inputs
     from masp_tpu_torch.host.primitives.asset_type import AssetType
     from masp_tpu_torch.host.primitives.keys import ExpandedSpendingKey
     from masp_tpu_torch.host.primitives.sapling import Diversifier, Note, Rseed
@@ -157,4 +158,78 @@ def fixture(kind: str):
     return make(XorShiftRng.from_seed(BENCH_SEED))
 
 
-__all__ = ["fixture", "BENCH_SEED"]
+def _auth_path(rng, leaf):
+    """A 32-level MerklePath to ``leaf`` (a Node) with random siblings and
+    sides, drawn as _spend_fixture draws them, and its root as an int."""
+    from masp_tpu_torch.host.fields import Scalar
+    from masp_tpu_torch.host.primitives.merkle_tree import MerklePath
+    from masp_tpu_torch.host.primitives.sapling import Node
+
+    steps = [(Scalar.from_bytes_wide(rng.fill_bytes(64)), rng.next_u32() % 2 != 0) for _ in range(32)]
+    path = MerklePath([(Node.from_scalar(sib), right) for sib, right in steps],
+                      sum(1 << i for i, (_, right) in enumerate(steps) if right))
+    return path, int.from_bytes(path.root(leaf).repr, "little")
+
+
+def jobs(n_spend: int, n_convert: int, n_output: int, seed: bytes = BENCH_SEED) -> dict:
+    """A seeded bundle: {"spend", "convert", "output"}: the job dicts that
+    ``SaplingProvingContext.prove_jobs`` takes; "value_balance": the
+    bundle's ValueSum (spent plus converted minus output), for
+    ``binding_sig``; "verifier": per kind what a verifier reads from each
+    description besides cv, rk and the proof (spend: anchor and nullifier;
+    convert: anchor; output: cmu and epk); "ask": each spend's spend
+    authorising key. Spends and outputs move two assets; each convert turns
+    one unit of the first into two of the second through an
+    AllowedConversion whose leaf sits in a random 32-level tree, as each
+    spent note's does."""
+    from masp_tpu_torch.host.primitives.asset_type import AssetType
+    from masp_tpu_torch.host.primitives.convert import AllowedConversion
+    from masp_tpu_torch.host.primitives.keys import ExpandedSpendingKey
+    from masp_tpu_torch.host.primitives.redjubjub import PrivateKey
+    from masp_tpu_torch.host.primitives.sapling import Diversifier, Note, Rseed
+    from masp_tpu_torch.host.rng import random_jubjub_fr
+    from masp_tpu_torch.host.transaction.amount import ValueSum
+
+    rng = XorShiftRng.from_seed(seed)
+    assets = [AssetType.new(b"default"), AssetType.new(b"convert-bench")]
+    expsk = ExpandedSpendingKey.from_spending_key(b"\x42" * 32)
+    pgk = expsk.proof_generation_key()
+    vk = pgk.to_viewing_key()
+    d = 0
+    while (addr := vk.to_payment_address(div := Diversifier(d.to_bytes(11, "little")))) is None:
+        d += 1
+    out = {"spend": [], "convert": [], "output": [], "value_balance": ValueSum.zero(),
+           "verifier": {"spend": [], "convert": [], "output": []}, "ask": []}
+    for i in range(n_spend):
+        asset, value = assets[i % 2], 1000 * (i + 1)
+        rseed = Rseed.before_zip212(random_jubjub_fr(rng))
+        note = Note(asset_type=asset, value=value, g_d=addr.g_d(), pk_d=addr.pk_d, rseed=rseed)
+        path, anchor = _auth_path(rng, note.commitment())
+        out["spend"].append({
+            "proof_generation_key": pgk, "diversifier": div, "rseed": rseed,
+            "ar": random_jubjub_fr(rng), "asset_type": asset, "value": value,
+            "anchor": anchor, "merkle_path": path, "rcv": random_jubjub_fr(rng)})
+        out["verifier"]["spend"].append((anchor, note.nf(vk.nk, path.position)))
+        out["ask"].append(PrivateKey(expsk.ask))
+        out["value_balance"] = out["value_balance"] + ValueSum.from_pair(asset, value)
+    conversion = AllowedConversion.from_assets(
+        ValueSum.from_pair(assets[0], -1) + ValueSum.from_pair(assets[1], 2))
+    for i in range(n_convert):
+        value = 7 * (i + 1)
+        path, anchor = _auth_path(rng, conversion.commitment())
+        out["convert"].append({"allowed_conversion": conversion, "value": value, "anchor": anchor,
+                               "merkle_path": path, "rcv": random_jubjub_fr(rng)})
+        out["verifier"]["convert"].append(anchor)
+        out["value_balance"] = out["value_balance"] + conversion.assets * value
+    for i in range(n_output):
+        asset, value = assets[i % 2], 300 * (i + 1)
+        esk, rcm = random_jubjub_fr(rng), random_jubjub_fr(rng)
+        out["output"].append({"esk": esk, "payment_address": addr, "rcm": rcm, "asset_type": asset,
+                              "value": value, "rcv": random_jubjub_fr(rng)})
+        note = addr.create_note(asset, value, Rseed.before_zip212(rcm))
+        out["verifier"]["output"].append((note.cmu().n, addr.g_d() * esk))
+        out["value_balance"] = out["value_balance"] - ValueSum.from_pair(asset, value)
+    return out
+
+
+__all__ = ["fixture", "jobs", "BENCH_SEED"]

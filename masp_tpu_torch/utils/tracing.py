@@ -44,15 +44,17 @@ class Tracer:
         self._records = []
 
     def report(self) -> dict:
-        """{name: {"count", "host_s", "device_ms"}}; device_ms is None for
-        spans that ran on the CPU."""
+        """{name: {"count", "host_s", "host_each_s", "device_ms"}}: the
+        span's count, total host seconds, host seconds of each occurrence,
+        and total stream ms (None for spans that ran on the CPU)."""
         if any(ev is not None for _, _, ev in self._records):
             torch.cuda.synchronize()
         out: dict = {}
         for name, host, events in self._records:
-            ent = out.setdefault(name, {"count": 0, "host_s": 0.0, "device_ms": None})
+            ent = out.setdefault(name, {"count": 0, "host_s": 0.0, "host_each_s": [], "device_ms": None})
             ent["count"] += 1
             ent["host_s"] += host
+            ent["host_each_s"].append(host)
             if events is not None:
                 ent["device_ms"] = (ent["device_ms"] or 0.0) + events[0].elapsed_time(events[1])
         return out

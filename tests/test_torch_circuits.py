@@ -46,22 +46,34 @@ COPIES = {
         "constants", "sapling", "convert", "witness_tape")},
     **{f"host/native/{m}": f"masp_tpu/native/{m}" for m in (
         "__init__.py", "lc_eval.cpp", "witness_tape.cpp")},
+    "host/encoding.py": "masp_tpu/utils/encoding.py",
+    "host/transaction/amount.py": "masp_tpu/transaction/amount.py",
+    "host/transaction/tx_prover.py": "masp_tpu/transaction/tx_prover.py",
+    "host/primitives/convert.py": "masp_tpu/primitives/convert.py",
+    "host/primitives/merkle_tree.py": "masp_tpu/primitives/merkle_tree.py",
+    "host/verifier.py": "masp_tpu/groth16/verifier.py",
+    **{f"groth16/{m}.py": f"masp_tpu/groth16/{m}.py" for m in (
+        "sapling_prover", "params_io", "local_prover")},
 }
 # port file -> (its source, the functions copied from it)
 FUNCTION_COPIES = {
-    "host/verifier.py": ("masp_tpu/groth16/verifier.py", ("verify_proof",)),
-    "groth16/public_inputs.py": ("masp_tpu/groth16/sapling_prover.py", (
-        "spend_public_inputs", "output_public_inputs", "convert_public_inputs")),
     "tools/fixtures.py": ("bench.py", ("_spend_fixture", "_convert_fixture", "_output_fixture")),
 }
 # the only copies with marked departures from their source: the device
-# branch of batch_verify and the native library's build
-DEPARTURES = {"host/primitives/redjubjub.py", "host/native/__init__.py"}
+# branches that raise until the port has its device twins (first line of
+# the block: the raise), the native library's build, and the port's
+# Parameters where the proving keys are taken, loaded or written
+DEVICE_BRANCHES = {"host/primitives/redjubjub.py", "host/primitives/merkle_tree.py", "host/verifier.py"}
+DEPARTURES = DEVICE_BRANCHES | {
+    "host/native/__init__.py", "groth16/sapling_prover.py", "groth16/params_io.py",
+    "groth16/local_prover.py"}
 # port import path -> source import path, the first match per import line
 IMPORTS = [
     ("masp_tpu_torch.groth16.synthesis import add_input_constraints as _add_input_constraints",
      "masp_tpu.groth16.generator import _add_input_constraints"),
-    ("masp_tpu_torch.groth16.public_inputs", "masp_tpu.groth16.sapling_prover"),
+    ("masp_tpu_torch.host.encoding", "masp_tpu.utils.encoding"),
+    ("masp_tpu_torch.host.verifier", "masp_tpu.groth16.verifier"),
+    ("masp_tpu_torch.groth16.", "masp_tpu.groth16."),
     ("masp_tpu_torch.host.fields", "masp_tpu.fields"),
     ("masp_tpu_torch.host.bls12_381", "masp_tpu.curves.bls12_381"),
     ("masp_tpu_torch.host.jubjub", "masp_tpu.curves.jubjub"),
@@ -151,11 +163,11 @@ def test_copies_are_verbatim_apart_from_imports():
             if g != w:
                 differ[f"{port_file}:{name}"] = "function differs from its source"
     assert not differ, differ
-    # the one branch that is not an import path: the device route raises
-    # at once
-    redjubjub = (PORT / "host/primitives/redjubjub.py").read_text().split("\n")
-    ((s, e),) = _departure_blocks(redjubjub)
-    assert redjubjub[s + 1].strip() == "raise NotImplementedError("
+    # a device route that is not ported raises at once
+    for port_file in DEVICE_BRANCHES:
+        lines = (PORT / port_file).read_text().split("\n")
+        ((s, e),) = _departure_blocks(lines)
+        assert lines[s + 1].strip() == "raise NotImplementedError(", port_file
 
 
 @pytest.fixture(scope="module")
