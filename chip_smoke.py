@@ -10,13 +10,21 @@ Output and Convert circuits in the default configuration, each synthesised by
 the port's copy of the host circuit stack from bench.py's seeded fixture
 (phase "circuits"), and last a bundle of real Spend, Convert and Output jobs
 through LocalTxProver.prove_jobs, the batch prover, at windows 1 and 2, on the
-circuits' parameters (phase "batch"). Every proof is checked with the host
-pairing verifier, and against a toxic-waste oracle or the single-proof path.
+circuits' parameters (phase "batch", which also runs the bundle through
+BatchValidator with the signature batches on the host and on the card). Every
+proof is checked with the host pairing verifier, and against a toxic-waste
+oracle or the single-proof path. Last, phase "jubjub" holds the three
+Jubjub kernels (the Edwards add, the Pedersen fold, the Fr square root)
+against their plain versions and drives the Jubjub and Pedersen twins: a
+note-commitment tree of 2^16 leaves through the default route, a RedJubjub
+batch of 256 signatures, an MSM of 2^10 points and the decompression of
+4,096 encodings, each held against the host.
 
     python3 chip_smoke.py             # everything (one card)
-    python3 chip_smoke.py --kernels   # build, kernel checks and the tools only
+    python3 chip_smoke.py --kernels   # build, the proof path's kernel checks and the tools only
     python3 chip_smoke.py --circuits  # build and the real circuits only
     python3 chip_smoke.py --batch     # build, the real circuits and the bundle
+    python3 chip_smoke.py --jubjub    # build and phase jubjub only
     python3 chip_smoke.py --profile   # also one profiled proof per configuration
                                       # and of the real Spend
 
@@ -93,6 +101,11 @@ REPLACES = {
     "int8_dot": "tools/bench_kernel_micro.py:129",
     "int8_dot_loop": "tools/bench_kernel_micro.py:154",
     "mont_mul_mxu": "tools/exp_mxu_mont.py:191",
+    # composed JAX programs without a Pallas body: the Edwards add, the
+    # Pedersen fold's fori_loop and the square root's lax.scan
+    "jubjub_add": "masp_tpu/ops/jubjub_jax.py:104",
+    "pedersen_fold": "masp_tpu/ops/pedersen_jax.py:77",
+    "fr_sqrt": "masp_tpu/ops/jubjub_jax.py:220",
 }
 SOURCE = {k: "masp_tpu_torch/csrc/" + src for k, src in (
     ("mont_mul_fr", "mont_mul.cu"), ("mont_mul_fq", "mont_mul.cu"),
@@ -102,7 +115,8 @@ SOURCE = {k: "masp_tpu_torch/csrc/" + src for k, src in (
     ("affine_pre", "affine.cu"), ("affine_post", "affine.cu"),
     ("affine_pre_g2", "affine.cu"), ("affine_post_g2", "affine.cu"),
     ("int8_dot", "int8_dot.cu"), ("int8_dot_loop", "int8_dot.cu"),
-    ("mont_mul_mxu", "mont_mul_mxu.cu"))}
+    ("mont_mul_mxu", "mont_mul_mxu.cu"), ("jubjub_add", "jubjub.cu"), ("pedersen_fold", "jubjub.cu"),
+    ("fr_sqrt", "jubjub.cu"))}
 # each kernel's entry function in ptxas's report: (source, a part of its
 # mangled name)
 ENTRY = {
@@ -115,13 +129,18 @@ ENTRY = {
     "affine_pre_g2": ("affine", "affine_pre_kernelI4Fq2E"), "affine_post_g2": ("affine", "affine_post_kernelI4Fq2E"),
     "int8_dot": ("int8_dot", "int8_dot_kernel"), "int8_dot_loop": ("int8_dot", "int8_dot_loop_kernel"),
     "mont_mul_mxu": ("mont_mul_mxu", "mont_mul_mxu_kernel"),
+    "jubjub_add": ("jubjub", "jubjub_add_kernel"), "pedersen_fold": ("jubjub", "pedersen_fold_kernel"),
+    "fr_sqrt": ("jubjub", "fr_sqrt_kernel"),
 }
 # the kernels each driven path must launch: the proof path (the affine
-# configuration runs them all, the scan one all but the affine kernels) and
-# the two tools; the Fr inversion has no caller on either and is checked in
-# the kernel phase alone
+# configuration runs them all, the scan one all but the affine kernels), the
+# two tools, and the Jubjub path (phase jubjub: the bulk Merkle tree, the
+# RedJubjub batch, the MSM and the decompression), the one caller of the Fr
+# inversion
 TOOL_KERNELS = ["int8_dot", "int8_dot_loop", "mont_mul_mxu"]
-PROOF_KERNELS = [k for k in REPLACES if k not in TOOL_KERNELS and k != "mont_inv_fr"]
+EDWARDS_KERNELS = ["jubjub_add", "pedersen_fold", "fr_sqrt"]
+JUBJUB_KERNELS = EDWARDS_KERNELS + ["mont_mul_fr", "mont_inv_fr"]
+PROOF_KERNELS = [k for k in REPLACES if k not in TOOL_KERNELS + EDWARDS_KERNELS and k != "mont_inv_fr"]
 # the kernels of the scan configuration, the default: every proof kernel but
 # the affine ones
 SCAN_KERNELS = [k for k in PROOF_KERNELS if not k.startswith("affine")]
@@ -153,6 +172,17 @@ AFFINE_LANES = {1: 1 << 21, 2: 1 << 18}
 AFFINE_LEVEL_LANES = 1 << 19
 # Fq products of 2 (2 W^2 + W) IMADs, W = 12
 FQ_IMAD = 2 * (2 * 144 + 12)
+# phase jubjub: the kernels' check and timing shapes (an add at the MSM
+# ladder's scale; the fold at a Merkle node's 172 chunks), then the path:
+# the note-commitment tree's leaves (device levels from 32,768 down to 64
+# pairs), the RedJubjub batch, the MSM's points, the encodings decompressed
+JUBJUB_ADD_PAIRS = 1 << 16
+FR_SQRT_ROWS = 1 << 12
+FOLD_CHUNKS, FOLD_HASHES = 172, 1 << 12
+JUBJUB_TREE_LEAVES = 1 << 16
+JUBJUB_SIGS = 256
+JUBJUB_MSM_POINTS = 1 << 10
+JUBJUB_DECOMPRESS = 4096
 # the NTT stages (half-width h) at which the product's stage form is held and
 # timed: one row a butterfly group, a narrow group and the widest stage of
 # the 2^17-point transforms
@@ -1428,10 +1458,11 @@ def batch_phase(circuits: dict, dev, card: str) -> dict:
     check = SP.SaplingVerificationContext()
     res = runs[BATCH_WINDOWS[0]]["results"]
     vrng = XorShiftRng.from_seed(BATCH_SEED[::-1])
+    sigs = []
     for (blob, cv, rk), job, (anchor, nf), ask in zip(res["spend"], bundle["spend"],
                                                      bundle["verifier"]["spend"], bundle["ask"]):
-        sig = spend_sig(ask, job["ar"], BATCH_SIGHASH, vrng)
-        if not check.check_spend(cv, anchor, nf, rk, BATCH_SIGHASH, sig, Proof.read(blob), prover.spend_vk):
+        sigs.append(spend_sig(ask, job["ar"], BATCH_SIGHASH, vrng))
+        if not check.check_spend(cv, anchor, nf, rk, BATCH_SIGHASH, sigs[-1], Proof.read(blob), prover.spend_vk):
             raise AssertionError("[batch] a spend description fails verification")
     for (blob, cv), anchor in zip(res["convert"], bundle["verifier"]["convert"]):
         if not check.check_convert(cv, anchor, Proof.read(blob), prover.convert_vk):
@@ -1445,6 +1476,7 @@ def batch_phase(circuits: dict, dev, card: str) -> dict:
     log(f"[batch] every description passes check_spend / check_convert / check_output (verify_proof "
         f"with its job's public inputs), each window's binding signature final_check, and the "
         f"self-check passed: {time.perf_counter() - t0:.1f} s of host verification")
+    validator_phase(res, bundle, sigs, runs[BATCH_WINDOWS[0]]["binding_sig"], prover, card)
 
     job = bundle["spend"][0]
     ctx = prover.new_sapling_proving_context()
@@ -1460,6 +1492,395 @@ def batch_phase(circuits: dict, dev, card: str) -> dict:
     log(f"[batch] singular spend_proof: {1e3 * wall:.2f} ms (witness, proof and its self-verification), "
         f"192 bytes, passes verify_proof on {card}")
     return {window: run["launches"] for window, run in runs.items()}
+
+
+def validator_phase(res, bundle, sigs, binding_sig, prover, card: str) -> None:
+    """The bundle's descriptions through BatchValidator (check_bundle, then
+    validate: the RedJubjub batches, then each kind's Groth16 batch check),
+    once with the signature batches on the host and once on the card
+    (use_device_sigs=True, ops/jubjub.batch_verify_device); both must pass,
+    and both must reject the bundle with one spend signature altered."""
+    from types import SimpleNamespace
+
+    from masp_tpu_torch.groth16 import sapling_prover as SP
+    from masp_tpu_torch.host.fields import Scalar
+    from masp_tpu_torch.host.primitives.redjubjub import Signature
+    from masp_tpu_torch.host.rng import XorShiftRng
+
+    def described(spend_sigs):
+        return SimpleNamespace(
+            shielded_spends=[SimpleNamespace(cv=cv, rk=rk, spend_auth_sig=sig, zkproof=blob, anchor=Scalar(anchor),
+                                             nullifier=nf)
+                             for (blob, cv, rk), sig, (anchor, nf) in zip(res["spend"], spend_sigs,
+                                                                          bundle["verifier"]["spend"])],
+            shielded_converts=[SimpleNamespace(cv=cv, zkproof=blob, anchor=Scalar(anchor))
+                               for (blob, cv), anchor in zip(res["convert"], bundle["verifier"]["convert"])],
+            shielded_outputs=[SimpleNamespace(cv=cv, zkproof=blob, cmu=Scalar(cmu), ephemeral_key=epk.to_bytes())
+                              for (blob, cv), (cmu, epk) in zip(res["output"], bundle["verifier"]["output"])],
+            value_balance=bundle["value_balance"],
+            authorization=SimpleNamespace(binding_sig=binding_sig))
+
+    s = bytearray(sigs[0].sbar)
+    s[0] ^= 1
+    altered = [Signature(sigs[0].rbar, bytes(s))] + sigs[1:]
+    for label, spend_sigs, want in (("as signed", sigs, True), ("one signature altered", altered, False)):
+        for on_card in (False, True):
+            validator = SP.BatchValidator()
+            if not validator.check_bundle(described(spend_sigs), BATCH_SIGHASH):
+                raise AssertionError("[batch] BatchValidator.check_bundle refuses the bundle")
+            t0 = time.perf_counter()
+            ok = validator.validate(prover.spend_vk, prover.convert_vk, prover.output_vk,
+                                    XorShiftRng.from_seed(BATCH_SEED), use_device_sigs=on_card)
+            wall = time.perf_counter() - t0
+            if ok != want:
+                raise AssertionError(f"[batch] BatchValidator.validate(use_device_sigs={on_card}) on the bundle "
+                                     f"{label}: {ok}, not {want}")
+            log(f"[batch] BatchValidator.validate(use_device_sigs={on_card}) on the bundle {label}: {ok} in "
+                f"{wall:.3f} s (signature batches and the Groth16 batch checks) on {card}")
+
+
+# --- phase jubjub: the Jubjub and Pedersen twins ------------------------------------------
+
+def _jubjub_rows(points, dev):
+    """Host Jubjub points -> (n, 48) int32 rows (Z = 1) on the card."""
+    import torch
+
+    from masp_tpu_torch.ops import jubjub as J
+
+    return torch.as_tensor(np.concatenate(J.encode_points(points), axis=1).astype(np.int32), device=dev)
+
+
+def _jubjub_chain(n, seed):
+    """n distinct points of the prime-order subgroup: a seeded multiple of
+    the spending key generator, then successive additions of it."""
+    from masp_tpu_torch.host.fields import JubjubFr
+    from masp_tpu_torch.host.primitives.constants import spending_key_generator
+
+    g = spending_key_generator()
+    p = g * JubjubFr(random.Random(seed).randrange(1, 1 << 128))
+    out = []
+    for _ in range(n):
+        out.append(p)
+        p = p + g
+    return out
+
+
+def _jubjub_cases():
+    """The JAX test's batch of every complete-addition case: generic pairs,
+    P + P, P + (-P), O + P and the order-2 point (0, -1) twice."""
+    from masp_tpu_torch.host.fields import SCALAR_MODULUS, Scalar
+    from masp_tpu_torch.host.jubjub import ExtendedPoint
+
+    ps = _jubjub_chain(4, 71)
+    qs = _jubjub_chain(4, 72)
+    t = ExtendedPoint.from_affine(Scalar(0), Scalar(SCALAR_MODULUS - 1))
+    return ps + [ps[0], ps[1], ExtendedPoint.identity(), t], qs + [ps[0], -ps[1], ps[2], t]
+
+
+def _sqrt_products() -> int:
+    """Fr products of one square root as fr_sqrt_kernel runs it: a squaring
+    per exponent bit and a product per set bit, x and b, b^2, one squaring
+    an inner step, four products a boundary step, the final check."""
+    from masp_tpu_torch.kernels import jubjub as KJ
+
+    bits = KJ.sqrt_exponent_bits()
+    steps = KJ.sqrt_schedule()
+    inner = sum(1 for j in steps if j)
+    return len(bits) + sum(bits) + 3 + inner + 4 * (len(steps) - inner) + 1
+
+
+def jubjub_kernel_phase(dev, rng, card: str) -> dict:
+    """The three Jubjub kernels bit for bit against their plain versions and
+    timed in a CUDA graph from HBM: jubjub_add at JUBJUB_ADD_PAIRS pairs
+    (projective operands, the edge lanes first, contiguous and strided) and
+    on the JAX test's batch of every case (also against the host curve);
+    fr_sqrt at FR_SQRT_ROWS rows (0, 1, N - 1 among them); pedersen_fold at
+    FOLD_CHUNKS chunks and FOLD_HASHES hashes of seeded digits."""
+    import torch
+
+    from masp_tpu_torch.kernels import jubjub as KJ
+    from masp_tpu_torch.kernels import mont_mul as MK
+    from masp_tpu_torch.ops import field as F
+    from masp_tpu_torch.ops import jubjub as J
+    from masp_tpu_torch.ops import pedersen as PED
+    from masp_tpu_torch.ops.field import FR
+
+    out = {}
+    prod_imad = 2 * (2 * 64 + 8)  # one Fr product: 2 (2 W^2 + W) IMADs, W = 8
+
+    # the add: the all-cases batch, then the wide batch
+    ps, qs = _jubjub_cases()
+    P8, Q8 = _jubjub_rows(ps, dev), _jubjub_rows(qs, dev)
+    got = KJ.jubjub_add(P8, Q8)
+    _check_equal("jubjub_add (all cases)", got, KJ.jubjub_add_plain(P8, Q8))
+    if J.decode_points(*(got[:, 16 * i : 16 * (i + 1)] for i in range(3))) != [p + q for p, q in zip(ps, qs)]:
+        raise AssertionError("jubjub_add (all cases): the sums differ from the host curve's")
+    n = JUBJUB_ADD_PAIRS
+    base = _jubjub_rows(_jubjub_chain(1024, rng.randrange(1 << 30)) + ps + qs, dev)
+    reps = -(-(n + 1) // base.shape[0])
+    rows = base.repeat(reps, 1)[: n + 1]
+    a, _ = _field_inputs(FR, n, rng, dev)
+    lam = torch.where((a == 0).all(dim=1, keepdim=True), FR.const("ONE_MONT", dev), a)
+    # projective operands: (X : Y : Z) scaled by a non-zero lambda per lane
+    P = torch.cat([MK.mont_mul_plain(FR, rows[:n, 16 * i : 16 * (i + 1)], lam) for i in range(3)], dim=1)
+    Q = rows[1:].contiguous()
+    P[: P8.shape[0]], Q[: Q8.shape[0]] = P8, Q8
+    want = KJ.jubjub_add_plain(P, Q)
+    err = _check_equal("jubjub_add", KJ.jubjub_add(P, Q), want)
+    pairs = torch.cat([P, Q], dim=1)
+    _check_equal("jubjub_add (strided)", KJ.jubjub_add(pairs[:, :48], pairs[:, 48:]), want)
+    for width in (1, 3, 17, 32, 128, 1003):
+        _check_equal(f"jubjub_add (width {width})", KJ.jubjub_add(P[:width], Q[:width]), want[:width])
+    nbytes = 3 * n * 48 * 4
+    out["jubjub_add"] = {
+        "n": n, "max_abs_err": err, "ms": _kernel_ms(KJ.jubjub_add, (P, Q), nbytes),
+        "eager_ms": _median_ms(lambda: KJ.jubjub_add(P, Q), 10),
+        "plain_ms": _median_ms(lambda: KJ.jubjub_add_plain(P, Q), 3),
+        "ops_ms": _imad_ms(n * 12 * prod_imad), "bytes": nbytes,
+        "all_cases_ms": _kernel_ms(KJ.jubjub_add, (P8, Q8), 3 * 8 * 48 * 4, launches=20, from_hbm=False),
+    }
+
+    # the square root
+    n = FR_SQRT_ROWS
+    a, _ = _field_inputs(FR, n, rng, dev)
+    root, ok = KJ.fr_sqrt(a)
+    want_root, want_ok = KJ.fr_sqrt_plain(a)
+    err = _check_equal("fr_sqrt", root, want_root)
+    if not torch.equal(ok, want_ok):
+        raise AssertionError("fr_sqrt: the flags differ from the plain version's")
+    vals, roots = F.decode(FR, a[:64]), F.decode(FR, root[:64])
+    for v, r, k in zip(vals, roots, ok[:64].tolist()):
+        if k != (v == 0 or pow(v, (FR.modulus - 1) // 2, FR.modulus) == 1) or (k and r * r % FR.modulus != v):
+            raise AssertionError("fr_sqrt: a root or flag disagrees with the host")
+    for width in (1, 3, 32, 1003):
+        r_, k_ = KJ.fr_sqrt(a[:width])
+        _check_equal(f"fr_sqrt (width {width})", r_, want_root[:width])
+        if not torch.equal(k_, want_ok[:width]):
+            raise AssertionError(f"fr_sqrt (width {width}): the flags differ")
+    nbytes = n * (2 * 16 + 1) * 4
+    out["fr_sqrt"] = {
+        "n": n, "max_abs_err": err, "ms": _kernel_ms(KJ.fr_sqrt, (a,), nbytes),
+        "eager_ms": _median_ms(lambda: KJ.fr_sqrt(a), 10),
+        "plain_ms": _median_ms(lambda: KJ.fr_sqrt_plain(a), 3),
+        "ops_ms": _imad_ms(n * _sqrt_products() * prod_imad), "bytes": nbytes,
+        "products": _sqrt_products(),
+    }
+
+    # the fold
+    C, n = FOLD_CHUNKS, FOLD_HASHES
+    t0 = time.perf_counter()
+    table = PED._chunk_tables(C, dev)
+    torch.cuda.synchronize()
+    table_s = time.perf_counter() - t0
+    idx = torch.as_tensor(np.random.default_rng(rng.randrange(1 << 30)).integers(0, 9, (C, n), dtype=np.int32),
+                          device=dev)
+    want = KJ.pedersen_fold_plain(table, idx)
+    err = _check_equal("pedersen_fold", KJ.pedersen_fold(table, idx), want)
+    for width in (1, 3, 32, 1003):
+        sub = idx[:, :width].contiguous()
+        _check_equal(f"pedersen_fold (width {width})", KJ.pedersen_fold(table, sub), want[:width])
+    nbytes = C * n * 4 + C * 9 * 48 * 4 + n * 48 * 4
+    out["pedersen_fold"] = {
+        "n": n, "chunks": C, "max_abs_err": err, "ms": _kernel_ms(KJ.pedersen_fold, (table, idx), nbytes),
+        "eager_ms": _median_ms(lambda: KJ.pedersen_fold(table, idx), 10),
+        "plain_ms": _median_ms(lambda: KJ.pedersen_fold_plain(table, idx), 3),
+        "ops_ms": _imad_ms(C * n * 12 * prod_imad), "bytes": nbytes,
+        "table_s": table_s,
+    }
+    log(f"kernel pedersen_fold: the {C}-chunk table built on the host and copied in {table_s:.3f} s")
+    for name, r in out.items():
+        bytes_ms, ops_ms = _set_bound(r)
+        log(f"kernel {name}: n={r['n']} bit-identical to plain (tolerance: exact; max_abs_err {r['max_abs_err']}); "
+            f"kernel {r['ms']:.4f} ms per launch in a CUDA graph, inputs from HBM ({r['eager_ms']:.4f} ms eager), "
+            f"plain {r['plain_ms']:.3f} ms (median of 3), bound {r['bound_ms']:.6f} ms ({r['bound_by']}; bytes "
+            f"{bytes_ms:.6f} ms, operations {ops_ms:.6f} ms) on {card}")
+    log(f"kernel jubjub_add on the all-cases batch (8 pairs): {out['jubjub_add']['all_cases_ms']:.4f} ms per "
+        f"launch in a CUDA graph, inputs in L2 on {card}")
+    return out
+
+
+def _tree_levels(n_leaves: int):
+    """(start, width) in a FrozenCommitmentTree's flat node list of each
+    level above the leaves while it has at least one pair, for a power-of-two
+    leaf count."""
+    out, start, width = [], 0, n_leaves
+    while width > 1:
+        start, width = start + width, width // 2
+        out.append((start, width))
+    return out
+
+
+def jubjub_phase(dev, rng, card: str) -> dict:
+    """Phase jubjub: the kernel checks (jubjub_kernel_phase), then the path
+    with the launch counts zeroed just before it, each part held against the
+    host: a whole 256-leaf tree against the host-built one, then a
+    FrozenCommitmentTree of JUBJUB_TREE_LEAVES seeded leaves, both through
+    the default route (MASP_MERKLE_DEVICE_MIN unset: 64 pairs a level and up
+    on the card), 128 random parents of each device level of the big tree
+    recomputed with the host merkle_hash; JUBJUB_SIGS RedJubjub signatures through
+    batch_verify(use_device=True), true, then false with one altered, each
+    equal to the host route; an MSM of JUBJUB_MSM_POINTS points i G against
+    (sum s_i i mod q) G; batch_from_bytes on JUBJUB_DECOMPRESS encodings and
+    the JAX test's invalid ones against the host's. Every kernel of
+    JUBJUB_KERNELS must launch. Returns the kernel entries and the launches."""
+    import torch
+
+    from masp_tpu_torch.host import jubjub as HJ
+    from masp_tpu_torch.host.fields import SCALAR_MODULUS, JubjubFr, Scalar
+    from masp_tpu_torch.host.jubjub import ExtendedPoint
+    from masp_tpu_torch.host.primitives import redjubjub as RJ
+    from masp_tpu_torch.host.primitives.constants import spending_key_generator
+    from masp_tpu_torch.host.primitives.merkle_tree import FrozenCommitmentTree
+    from masp_tpu_torch.host.primitives.sapling import Node, merkle_hash
+    from masp_tpu_torch.host.rng import XorShiftRng
+    from masp_tpu_torch.kernels import LAUNCHES, reset_launches
+    from masp_tpu_torch.ops import jubjub as J
+    from masp_tpu_torch.ops import pedersen as PED
+
+    kern = jubjub_kernel_phase(dev, rng, card)
+    if "MASP_MERKLE_DEVICE_MIN" in os.environ:
+        raise AssertionError("[jubjub] MASP_MERKLE_DEVICE_MIN is set: the tree must take the default route")
+    q = JubjubFr.META.modulus
+    R = SCALAR_MODULUS
+    t0 = time.perf_counter()
+    leaves = [Node(rng.randrange(R).to_bytes(32, "little")) for _ in range(JUBJUB_TREE_LEAVES)]
+    p_g = spending_key_generator()
+    keys = random.Random(rng.randrange(1 << 30))
+
+    class _Bytes:
+        def fill_bytes(self, k):
+            return keys.randbytes(k)
+
+    entries = []
+    for i in range(JUBJUB_SIGS):
+        sk = RJ.PrivateKey(JubjubFr(keys.randrange(1, q)))
+        msg = f"jubjub-phase-{i}".encode()
+        entries.append(RJ.BatchEntry(vk=RJ.PublicKey.from_private(sk, p_g), msg=msg, sig=sk.sign(msg, _Bytes(), p_g)))
+    s = bytearray(entries[JUBJUB_SIGS // 2].sig.sbar)
+    s[0] ^= 1
+    bad = list(entries)
+    bad[JUBJUB_SIGS // 2] = RJ.BatchEntry(vk=bad[JUBJUB_SIGS // 2].vk, msg=bad[JUBJUB_SIGS // 2].msg,
+                                          sig=RJ.Signature(bad[JUBJUB_SIGS // 2].sig.rbar, bytes(s)))
+    chain = _jubjub_chain(max(JUBJUB_MSM_POINTS, JUBJUB_DECOMPRESS), rng.randrange(1 << 30))
+    g = spending_key_generator()
+    msm_points, acc = [], ExtendedPoint.identity()
+    for _ in range(JUBJUB_MSM_POINTS):
+        msm_points.append(acc)
+        acc = acc + g
+    scalars = [rng.randrange(q) for _ in range(JUBJUB_MSM_POINTS)]
+    items = [p.to_bytes() for p in chain[:JUBJUB_DECOMPRESS]]
+    neg_zero = bytearray(ExtendedPoint.identity().to_bytes())
+    neg_zero[31] |= 0x80
+    notsq = bytearray(items[0])
+    while ExtendedPoint.from_bytes(bytes(notsq)) is not None:
+        notsq[0] = (notsq[0] + 1) & 0xFF
+    items += [ExtendedPoint.identity().to_bytes(), ExtendedPoint.from_affine(Scalar(0), Scalar(R - 1)).to_bytes(),
+              (R + 1).to_bytes(32, "little"), bytes(neg_zero), bytes(notsq), b"\x00" * 31]
+    log(f"[jubjub] setup on the host: {JUBJUB_TREE_LEAVES} leaves, {JUBJUB_SIGS} signatures, "
+        f"{JUBJUB_MSM_POINTS} MSM points, {len(items)} encodings in {time.perf_counter() - t0:.1f} s")
+
+    # the device levels' times, through the twin the copy imports
+    levels, twin = [], PED.batch_merkle_hash
+
+    def timed(depth, pairs, *args, **kwargs):
+        t0 = time.perf_counter()
+        res = twin(depth, pairs, *args, **kwargs)
+        levels.append((depth, len(pairs), time.perf_counter() - t0))
+        return res
+
+    reset_launches()
+    # the 256-leaf tree first: its two device levels also take the first
+    # use of each library and table out of the timed tree
+    t0 = time.perf_counter()
+    small = leaves[:256]
+    dev_tree = FrozenCommitmentTree.new(small)
+    times = {"tree_256": time.perf_counter() - t0}
+    PED.batch_merkle_hash = timed
+    try:
+        t0 = time.perf_counter()
+        tree = FrozenCommitmentTree.new(leaves)
+        times["tree"] = time.perf_counter() - t0
+    finally:
+        PED.batch_merkle_hash = twin
+    t0 = time.perf_counter()
+    sig_ok = RJ.batch_verify(XorShiftRng.from_seed(BATCH_SEED), entries, p_g, use_device=True)
+    times["sigs"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sig_bad = RJ.batch_verify(XorShiftRng.from_seed(BATCH_SEED), bad, p_g, use_device=True)
+    times["sigs_altered"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    msm_sum = J.msm(msm_points, scalars)
+    times["msm"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    decoded = J.batch_from_bytes(items)
+    times["decompress"] = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
+    log(f"[jubjub] launches: {json.dumps({k: v for k, v in launches.items() if v})}")
+    for name in JUBJUB_KERNELS:
+        if launches[name] <= 0:
+            raise AssertionError(f"[jubjub] kernel {name} was not launched on the Jubjub path")
+
+    # the tree against the host
+    want_levels = [(d, JUBJUB_TREE_LEAVES >> (d + 1)) for d in range(len(levels))]
+    if [(d, n) for d, n, _ in levels] != want_levels or levels[-1][1] != 64:
+        raise AssertionError(f"[jubjub] device levels {[(d, n) for d, n, _ in levels]}, not {want_levels} down to 64")
+    for d, n, t in levels:
+        log(f"[jubjub] tree level {d}: {n} pairs on the card in {1e3 * t:.2f} ms "
+            f"({1e6 * t / n:.3f} us a hash) on {card}")
+    log(f"[jubjub] FrozenCommitmentTree.new of {JUBJUB_TREE_LEAVES} leaves, default route: {times['tree']:.3f} s "
+        f"({sum(t for _, _, t in levels):.3f} s in the {len(levels)} device levels) on {card}")
+    t0 = time.perf_counter()
+    prev = 0
+    for d, (start, width) in enumerate(_tree_levels(JUBJUB_TREE_LEAVES)[: len(levels)]):
+        for j in random.Random(d).sample(range(width), min(128, width)):
+            want = merkle_hash(d, tree.nodes[prev + 2 * j].repr, tree.nodes[prev + 2 * j + 1].repr)
+            if tree.nodes[start + j].repr != want:
+                raise AssertionError(f"[jubjub] tree level {d + 1} node {j} differs from the host merkle_hash")
+        prev = start
+    os.environ["MASP_MERKLE_DEVICE_MIN"] = "0"
+    try:
+        host_tree = FrozenCommitmentTree.new(small)
+    finally:
+        os.environ.pop("MASP_MERKLE_DEVICE_MIN")
+    if dev_tree != host_tree or dev_tree.root() != host_tree.root():
+        raise AssertionError("[jubjub] the 256-leaf tree differs from the one built on the host")
+    log(f"[jubjub] 128 random parents (all of the 64-pair level) of each device level equal the host "
+        f"merkle_hash's, and the 256-leaf tree (2 device levels, {times['tree_256']:.3f} s, built first) equals "
+        f"the host-built tree: {time.perf_counter() - t0:.1f} s of host checks")
+
+    # signatures against the host route
+    t0 = time.perf_counter()
+    host_ok = RJ.batch_verify(XorShiftRng.from_seed(BATCH_SEED), entries, p_g, use_device=False)
+    host_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    host_bad = RJ.batch_verify(XorShiftRng.from_seed(BATCH_SEED), bad, p_g, use_device=False)
+    host_bad_s = time.perf_counter() - t0
+    if (sig_ok, sig_bad, host_ok, host_bad) != (True, False, True, False):
+        raise AssertionError(f"[jubjub] signature batches: card {sig_ok}/{sig_bad}, host {host_ok}/{host_bad}, "
+                             f"not True/False")
+    log(f"[jubjub] {JUBJUB_SIGS} RedJubjub signatures, batch_verify(use_device=True): {sig_ok} in "
+        f"{times['sigs']:.3f} s, one altered: {sig_bad} in {times['sigs_altered']:.3f} s; host route "
+        f"{host_ok} in {host_s:.3f} s, {host_bad} in {host_bad_s:.3f} s on {card}")
+
+    # the MSM against one host scalar multiplication
+    want = g * JubjubFr(sum(s * i for i, s in enumerate(scalars)) % q)
+    if msm_sum != want:
+        raise AssertionError("[jubjub] the MSM differs from (sum s_i i mod q) G")
+    log(f"[jubjub] msm of {JUBJUB_MSM_POINTS} points i G: {times['msm']:.3f} s, equal to "
+        f"(sum s_i i mod q) G on {card}")
+
+    # decompression against the host
+    t0 = time.perf_counter()
+    host = HJ.batch_from_bytes(items[:-1]) + [None]  # the host helper takes 32-byte items
+    host_dec_s = time.perf_counter() - t0
+    if [None if p is None else p.to_bytes() for p in decoded] != [None if p is None else p.to_bytes() for p in host]:
+        raise AssertionError("[jubjub] batch_from_bytes differs from the host's")
+    if sum(p is None for p in decoded) != 4:
+        raise AssertionError("[jubjub] batch_from_bytes did not reject the four invalid encodings")
+    log(f"[jubjub] batch_from_bytes of {len(items)} encodings: {times['decompress']:.3f} s on the card, "
+        f"equal to host/jubjub.batch_from_bytes ({host_dec_s:.3f} s on the host) on {card}")
+    return {"kernels": kern, "launches": launches, "times": times, "levels": levels}
 
 
 # --- main ------------------------------------------------------------------------------
@@ -1571,6 +1992,11 @@ def main(argv) -> int:
                 log(f"  ptxas {' '.join([src, *defines])}: {line.strip()}")
 
     rng = random.Random(SEED)
+    if "--jubjub" in argv:
+        jubjub_phase(dev, rng, card)
+        print(card)
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": 1}}))
+        return 0
     if "--circuits" in argv or "--batch" in argv:
         circuits = circuits_phase(dev, rng, card, "--profile" in argv)
         if "--batch" in argv:
@@ -1633,38 +2059,45 @@ def main(argv) -> int:
         raise AssertionError("[scan] the scan ladder launched the affine kernels")
     circuits = circuits_phase(dev, rng, card, "--profile" in argv)
     batch = batch_phase(circuits, dev, card)
+    jubjub = jubjub_phase(dev, rng, card)
+    kern.update(jubjub["kernels"])
     leaf_per_proof(leaf_widths(asm, params, rs[1], dev), params, dev, card)
     for name, r in mont_mul_per_proof(mont_mul_widths(asm, params, rs[1], dev), dev, card).items():
         kern[name]["per_proof"] = r
 
     def path_launches(name):
         """Launches on the path that runs the kernel: the affine kernels'
-        in the affine configuration's proofs, the other proof kernels' in
-        the main path's (0 for the Fr inversion, which no path runs)."""
+        in the affine configuration's proofs, the Jubjub kernels' and the Fr
+        inversion's on the Jubjub path, the other proof kernels' in the main
+        path's."""
+        if name in EDWARDS_KERNELS or name == "mont_inv_fr":
+            return jubjub["launches"][name]
         return launches["affine" if name in affine_kernels else order[0]][name]
 
     # "ms" is per launch inside a CUDA graph with inputs from HBM; "eager_ms"
     # is CUDA events around one eager call, the host's launch included;
     # "bytes" and "ops_ms" are the two sides of the bound; "launches_by_path"
     # holds each configuration's and each real circuit's launches over its
-    # timed proofs, and the bundle's at window 2, the default ("batch");
+    # timed proofs, the bundle's at window 2, the default ("batch"), and the
+    # Jubjub path's ("jubjub");
     # "widest" is a leaf add's pairs and ms at the main path's widest leaf
     # launch; a product's "forms" (ms through F.mont_mul and
     # bound per operand form), "narrow_ms" (rows: ms, inputs in L2),
     # "per_proof" (the main path's launches timed at their widths and forms,
-    # summed) and "sass"
+    # summed) and "sass"; "all_cases_ms" is jubjub_add's ms on the 8 pairs of
+    # every addition case
     line = {"kernels": [{
         "name": name, "route": "cuda", "source": SOURCE[name], "replaces": REPLACES[name],
         "launches": k["launches"] if name in TOOL_KERNELS else path_launches(name),
         "launches_by_path": None if name in TOOL_KERNELS else {
             **{label: launches[label][name] for label in order},
             **{kind: c["launches"][name] for kind, c in circuits.items()},
-            "batch": batch[BATCH_WINDOWS[-1]][name]},
+            "batch": batch[BATCH_WINDOWS[-1]][name], "jubjub": jubjub["launches"][name]},
         "max_abs_err": k["max_abs_err"], "ms": k["ms"],
         "eager_ms": k["eager_ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
         "bound_by": k["bound_by"], "library_ms": k.get("library_ms"), "bytes": k["bytes"],
         "ops_ms": k["ops_ms"], "ptxas": ptxas[name], "widest": k.get("widest"),
-        **{key: k[key] for key in ("forms", "narrow_ms", "per_proof") if key in k},
+        **{key: k[key] for key in ("forms", "narrow_ms", "per_proof", "all_cases_ms") if key in k},
         **({"sass": sass[name]} if name in sass else {})}
         for name, k in {**kern, **tools}.items()]}
     print(json.dumps(line))

@@ -42,12 +42,40 @@ from masp_tpu_torch.ops.msm import identity_rows
 from masp_tpu_torch.ops.projective import unpack_rows
 from masp_tpu_torch.utils.tracing import span
 
+
+def msm_flags(env) -> dict:
+    """The prover's MSM configuration from the JAX package's variables, with
+    the port's defaults: MASP_MSM_C, the window width of the full-width MSMs
+    (8; 2 .. 16, and on the batch-affine ladder only widths whose window
+    count is a power of two); MASP_MSM_SPLIT ("1"), the boolean split of the
+    l/a/b queries; MASP_MSM_SPLIT_MIN (32768), the bit wires a query needs
+    for its split (Spend: 50-68k per query; Output and Convert: 17-24k,
+    where the split does not pay); MASP_ABC_DEVICE ("1"), the a/b/c values
+    on the device. A value of these, or of MASP_MSM_SIGNED,
+    MASP_MSM_FUSED, MASP_MSM_BGMW_H or MASP_MSM (the sorted MSM), that the
+    port does not implement raises ValueError."""
+    c = int(env.get("MASP_MSM_C", "8"))
+    if not 2 <= c <= 16:
+        raise ValueError(f"MASP_MSM_C={c}: the window width must be 2 .. 16")
+    if MS.AFFINE_LADDER and not MS.affine_ladder_takes(MS.n_windows_for(c), 1):
+        raise ValueError(f"MASP_MSM_C={c}: {MS.n_windows_for(c)} windows, which the batch-affine ladder "
+                         f"cannot take (a power-of-two count is needed)")
+    for name, default, implemented in (("MASP_MSM_SIGNED", "0", "0"), ("MASP_MSM_FUSED", "0", "0"),
+                                       ("MASP_MSM_BGMW_H", "0", "0"), ("MASP_ABC_DEVICE", "1", "1"),
+                                       ("MASP_MSM", "sorted", "sorted")):
+        if env.get(name, default) != implemented:
+            raise ValueError(f"{name}={env[name]!r} is not implemented in the port (it runs {implemented!r})")
+    return {"MSM_C": c, "MSM_SPLIT": env.get("MASP_MSM_SPLIT", "1") == "1",
+            "MSM_SPLIT_MIN": int(env.get("MASP_MSM_SPLIT_MIN", "32768"))}
+
+
+_FLAGS = msm_flags(os.environ)
 # window width of the full-width MSMs
-MSM_C = 8
-# a query is split into a {0,1}-scalar part and a full-width part when at
-# least this many of its exponents are structural bit wires (Spend: 50-68k
-# per query; Output and Convert: 17-24k, where the split does not pay)
-MSM_SPLIT_MIN = 32768
+MSM_C = _FLAGS["MSM_C"]
+# whether a query is split into a {0,1}-scalar part and a full-width part,
+# and from how many structural bit wires
+MSM_SPLIT = _FLAGS["MSM_SPLIT"]
+MSM_SPLIT_MIN = _FLAGS["MSM_SPLIT_MIN"]
 
 G1_QUERIES = ("h", "l", "a", "b_g1")
 # the fetch's groups: (group ops, queries, host decoder of affine limbs)
@@ -195,7 +223,7 @@ def prepare_split_queries(params: Parameters, asm: Assembly) -> None:
     query are bit wires (and not all of them). Witness values are checked
     against the mask at prove time."""
     st = _structure(params.device, asm)
-    if params.device.get("split_key") == (st["key"], MSM_SPLIT_MIN):
+    if params.device.get("split_key") == (st["key"], MSM_SPLIT, MSM_SPLIT_MIN):
         return
     mask = st["mask"]
     qmasks = {
@@ -212,13 +240,13 @@ def prepare_split_queries(params: Parameters, asm: Assembly) -> None:
         if qm.shape[0] != rows.shape[0]:
             raise ValueError(f"query {name!r} has {rows.shape[0]} points, the circuit {qm.shape[0]}")
         n_small = int(qm.sum())
-        if n_small < MSM_SPLIT_MIN or n_small == qm.shape[0]:
+        if not MSM_SPLIT or n_small < MSM_SPLIT_MIN or n_small == qm.shape[0]:
             continue
         g2 = name == "b_g2"
         params.device[name + "_small"] = torch.as_tensor(_pad_pow2(rows[qm], g2, 3), device=dev)
         params.device[name + "_full"] = torch.as_tensor(_pad_pow2(rows[~qm], g2, 3), device=dev)
         params.device[name + "_qmask"] = qm
-    params.device["split_key"] = (st["key"], MSM_SPLIT_MIN)
+    params.device["split_key"] = (st["key"], MSM_SPLIT, MSM_SPLIT_MIN)
 
 
 # --- the h quotient ----------------------------------------------------------------
@@ -476,5 +504,6 @@ def create_random_proof(circuit, params: Parameters, rng, device="cuda") -> Proo
 __all__ = [
     "create_proof", "create_random_proof", "create_proof_from_assembly",
     "create_proofs_from_assemblies", "synthesize_witness", "prepare_device_params",
-    "prepare_split_queries", "boolean_var_mask", "h_pipeline", "MSM_C", "MSM_SPLIT_MIN",
+    "prepare_split_queries", "boolean_var_mask", "h_pipeline", "msm_flags", "MSM_C", "MSM_SPLIT",
+    "MSM_SPLIT_MIN",
 ]

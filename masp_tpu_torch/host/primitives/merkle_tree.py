@@ -1,8 +1,5 @@
-# Copy of masp_tpu/primitives/merkle_tree.py, verbatim apart from import paths and one
-# branch, marked below: FrozenCommitmentTree's device route (MASP_MERKLE_DEVICE_MIN
-# pairs or more a level, 64 by default) raises NotImplementedError until the port has
-# a device Merkle hash (ROADMAP queue 1, item 4); it never falls through to the host
-# loop. The port imports nothing of masp_tpu.
+# Copy of masp_tpu/primitives/merkle_tree.py, verbatim apart from import paths; the port imports
+# nothing of masp_tpu.
 """Merkle trees of note commitments (masp_primitives/src/merkle_tree.rs).
 
 - ``FrozenCommitmentTree``: flat-vector bulk-built tree with subtree merge
@@ -107,11 +104,13 @@ class FrozenCommitmentTree:
                 tree.append(_empty_root(height))
             n_pairs = prev_width // 2
             if device_min > 0 and n_pairs >= device_min:
-                # departs from the source: no device Merkle hash in the port yet
-                raise NotImplementedError(
-                    "the device Merkle hash is not ported yet (ROADMAP queue 1, item 4)"
-                )
-                # end of departure
+                from masp_tpu_torch.ops.pedersen import batch_merkle_hash
+
+                pairs = [
+                    (tree[prev_start + 2 * j].repr, tree[prev_start + 2 * j + 1].repr)
+                    for j in range(n_pairs)
+                ]
+                tree.extend(Node(r) for r in batch_merkle_hash(height, pairs))
             else:
                 for j in range(n_pairs):
                     tree.append(

@@ -1,8 +1,5 @@
-# Copy of masp_tpu/primitives/redjubjub.py, verbatim apart from import paths and one
-# branch, marked below: batch_verify's device route (use_device, or
-# MASP_DEVICE_REDJUBJUB=1) raises NotImplementedError until the port has a device
-# batch verifier (ROADMAP queue 1, item 4); it never falls through to the host loop.
-# The port imports nothing of masp_tpu.
+# Copy of masp_tpu/primitives/redjubjub.py, verbatim apart from import paths; the port imports
+# nothing of masp_tpu.
 """RedJubjub (RedDSA over Jubjub) with MASP personalization.
 
 Mirrors masp_primitives/src/sapling/redjubjub.rs: personalization
@@ -156,11 +153,9 @@ def batch_verify(
 
         use_device = os.environ.get("MASP_DEVICE_REDJUBJUB") == "1"
     if use_device:
-        # departs from the source: no device batch verifier in the port yet
-        raise NotImplementedError(
-            "the device RedJubjub batch verifier is not ported yet (ROADMAP queue 1, item 4)"
-        )
-        # end of departure
+        from masp_tpu_torch.ops.jubjub import batch_verify_device
+
+        return batch_verify_device(rng, batch, p_g)
     acc = ExtendedPoint.identity()
     for entry in batch:
         r = ExtendedPoint.from_bytes(entry.sig.rbar)

@@ -28,6 +28,9 @@ LAUNCHES = {
     "int8_dot": 0,
     "int8_dot_loop": 0,
     "mont_mul_mxu": 0,
+    "jubjub_add": 0,
+    "pedersen_fold": 0,
+    "fr_sqrt": 0,
 }
 
 

@@ -23,7 +23,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"
-SOURCES = ("mont_mul", "point_add", "affine", "int8_dot", "mont_mul_mxu")
+SOURCES = ("mont_mul", "point_add", "affine", "int8_dot", "mont_mul_mxu", "jubjub")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -51,10 +51,17 @@ def _toeplitz(limbs, width: int, device) -> torch.Tensor:
     return T
 
 
+# rows up to which the plain product runs on Python ints (``_redc_ints``):
+# below a few hundred rows the limb route's fixed tensor operations cost
+# more than the rows' integer arithmetic on the CPU
+INT_ROWS = 256
+
+
 def _redc_ints(spec, a, b):
     """The same whole-number REDC on Python ints, row by row, for a few
-    rows (the width-1 Fermat chains, the Horner tails): there the limb
-    version's sixty tensor operations cost ten times the arithmetic.
+    rows (the width-1 Fermat chains, the Horner tails, the bucket chains):
+    there the limb version's tensor operations cost more than the
+    arithmetic.
     U = (ab + mN) / R < R + N, and one conditional subtraction, as
     reduce_once does: the same limbs for every input below R."""
     R, N = spec.R, spec.modulus
@@ -77,11 +84,11 @@ def mont_mul_plain(spec, a, b):
     by digit, so the limbs agree. The limb products sum into columns as
     exact float64 matrix products (each column < L 2^32 < 2^53), which keeps
     the plain version to a few dozen tensor operations: it runs in every CPU
-    test. Up to 16 rows run it on Python ints (``_redc_ints``)."""
+    test. Up to INT_ROWS rows run it on Python ints (``_redc_ints``)."""
     L = spec.L
     dev = a.device
     n = a.shape[0]
-    if n <= 16:
+    if n <= INT_ROWS:
         return _redc_ints(spec, a, b)
     a = a.to(torch.int64)
     b = b.to(torch.int64)

@@ -19,15 +19,22 @@ from masp_tpu_torch.ops.field import FQ
 
 
 def identity_rows(fops, batch_shape, device) -> torch.Tensor:
-    """Packed identity rows (0 : 1 : 0) of shape batch_shape + (rowlen,)."""
+    """Packed identity rows of shape batch_shape + (rowlen,): (0 : 1 : 0) on
+    G1 and G2; a curve with another identity declares it as an
+    ``IDENTITY_MONT`` tuple of coordinates (Jubjub: (0 : 1 : 1) over Fr)."""
     k = int(np.prod(fops.coord_shape))
+    ident = getattr(fops, "IDENTITY_MONT", None)
 
     def build():
-        row = np.zeros(3 * k, dtype=np.int32)
-        row[k : k + FQ.L] = FQ.ONE_MONT
+        if ident is not None:
+            row = np.concatenate([np.asarray(c).reshape(-1) for c in ident]).astype(np.int32)
+        else:
+            row = np.zeros(3 * k, dtype=np.int32)
+            row[k : k + FQ.L] = FQ.ONE_MONT
         return torch.as_tensor(row, device=device)
 
-    row = device_const(("identity_row", k, torch.device(device)), build)
+    curve = "weierstrass" if ident is None else fops.__name__
+    row = device_const(("identity_row", curve, k, torch.device(device)), build)
     return row.expand(tuple(batch_shape) + (3 * k,)).clone()
 
 

@@ -32,11 +32,14 @@ affine node is the canonical affine sum, a projective node carries its own Z.
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import torch
 
 from masp_tpu_torch import device_const
 from masp_tpu_torch.kernels import affine as AK
+from masp_tpu_torch.kernels import jubjub as KJ
 from masp_tpu_torch.kernels import point_add as PA
 from masp_tpu_torch.ops import field as F
 from masp_tpu_torch.ops.field import FQ
@@ -70,17 +73,31 @@ def windows_from_limbs(limbs16, c: int):
 
 
 def _g_neg(fops, rows):
-    """Negate packed points: Y -> -Y (each Fq2 coefficient on G2)."""
+    """Negate packed points: Y -> -Y (each Fq2 coefficient on G2); a curve
+    with a ``neg_point`` hook (Edwards: X -> -X) negates through it."""
     k = int(np.prod(fops.coord_shape))
+    if hasattr(fops, "neg_point"):
+        coords = tuple(rows[..., i * k : (i + 1) * k] for i in range(3))
+        return torch.cat(fops.neg_point(coords), dim=-1)
     y = rows[..., k : 2 * k].reshape(rows.shape[:-1] + (-1, FQ.L))
     ny = F.neg(FQ, y).reshape(rows.shape[:-1] + (k,))
     return torch.cat([rows[..., :k], ny, rows[..., 2 * k :]], dim=-1)
 
 
+def _add_rows(fops, a, b, leaf01: bool):
+    """The add kernel of the curve on (n, rowlen) rows: the point-add kernel
+    on G1 and G2, in its leaf form where ``leaf01``; a curve with an
+    ``add_points`` hook (Jubjub) takes its own complete add, which has no
+    leaf form, as the JAX package's g_add01 falls through to add_points."""
+    if hasattr(fops, "add_points"):
+        return KJ.jubjub_add(a, b)
+    return PA.point_add(fops.GROUP, a, b, leaf01)
+
+
 def _add(fops, a, b, leaf01: bool = False):
     """Point-add kernel on packed rows of any matching leading shape."""
     lead = a.shape[:-1]
-    out = PA.point_add(fops.GROUP, a.reshape(-1, a.shape[-1]), b.reshape(-1, b.shape[-1]), leaf01)
+    out = _add_rows(fops, a.reshape(-1, a.shape[-1]), b.reshape(-1, b.shape[-1]), leaf01)
     return out.reshape(lead + (a.shape[-1],))
 
 
@@ -88,7 +105,7 @@ def _halve(fops, cur, leaf01: bool):
     """One ladder level: rows (n, rowlen) -> sums of adjacent pairs (n/2, rowlen)."""
     rl = cur.shape[-1]
     pairs = cur.reshape(-1, 2 * rl)
-    return PA.point_add(fops.GROUP, pairs[:, :rl], pairs[:, rl:], leaf01)
+    return _add_rows(fops, pairs[:, :rl], pairs[:, rl:], leaf01)
 
 
 def _levels(N: int) -> int:
@@ -251,8 +268,29 @@ def masked_sum(fops, points_packed, bits):
 # ladder than on the scan ladder, paced by the host's launches of the
 # product trees' Montgomery products and by one dependent Fermat chain a
 # level (PERF.md, sections 5 and 6).
-AFFINE_LADDER = False
-AFFINE_LEVELS = 4
+
+
+def ladder_flags(env) -> tuple[bool, int]:
+    """(AFFINE_LADDER, AFFINE_LEVELS) from the JAX package's variables:
+    MASP_MSM_AFFINE "1" for the batch-affine ladder, "0" or "auto" (the
+    default: the port's default, the scan ladder); MASP_MSM_AFFINE_LEVELS
+    (4). The wide bucket reduction runs with the affine ladder and only
+    there, so a MASP_MSM_WIDE_REDUCE=1 on the scan ladder raises, as does
+    any value this port does not implement."""
+    affine = env.get("MASP_MSM_AFFINE", "auto")
+    if affine not in ("auto", "0", "1"):
+        raise ValueError(f"MASP_MSM_AFFINE={affine!r}: the port takes auto, 0 or 1")
+    affine = affine == "1"
+    if env.get("MASP_MSM_WIDE_REDUCE", "0") == "1" and not affine:
+        raise ValueError("MASP_MSM_WIDE_REDUCE=1 without MASP_MSM_AFFINE=1: the port runs the wide bucket "
+                         "reduction with the affine ladder only")
+    levels = int(env.get("MASP_MSM_AFFINE_LEVELS", "4"))
+    if levels < 0:
+        raise ValueError(f"MASP_MSM_AFFINE_LEVELS={levels} is negative")
+    return affine, levels
+
+
+AFFINE_LADDER, AFFINE_LEVELS = ladder_flags(os.environ)
 
 
 def affine_ladder_takes(n_windows: int, n_points: int) -> bool:
@@ -329,5 +367,5 @@ def window_buckets_flat(fops, points_packed, digits, c: int):
 __all__ = [
     "n_windows_for", "windows_from_limbs", "window_buckets", "window_buckets_flat",
     "bucket_reduce_horner", "sorted_msm", "sorted_msm_from_limbs",
-    "masked_sum", "affine_ladder_takes", "AFFINE_LADDER", "AFFINE_LEVELS",
+    "masked_sum", "affine_ladder_takes", "ladder_flags", "AFFINE_LADDER", "AFFINE_LEVELS",
 ]

@@ -203,10 +203,13 @@ def test_verify_proofs_batch_matches_jax():
         got = verify_proofs_batch(pvk, XorShiftRng.from_seed(SEED), [HS.Proof.read(b) for b in proofs], inputs)
         assert got == got_jax == want
 
-def test_unported_device_routes_raise():
-    """The copies' device routes without a twin in the port raise, never
-    falling back to the host: verify_proofs_batch's device pairing, and the
-    frozen tree's bulk hash from 64 pairs a level (below, the host hashes)."""
+def test_device_pairing_raises_and_bulk_tree_matches_host(monkeypatch):
+    """verify_proofs_batch's device pairing, which has no twin in the port
+    yet, raises, never falling back to the host; the frozen tree's bulk hash
+    from 64 pairs a level (the default route) goes through the Pedersen twin,
+    here on the CPU: a 128-leaf tree equals the one hashed on the host."""
+    from masp_tpu_torch.ops import pedersen as TPED
+
     params, _ = _host_params(CubicCircuit())
     cs, _ = _witness(CubicCircuit(x=3))
     pvk = HS.prepare_verifying_key(_port_params(params).vk)
@@ -214,10 +217,20 @@ def test_unported_device_routes_raise():
     with pytest.raises(NotImplementedError, match="queue 1, item 4"):
         verify_proofs_batch(pvk, XorShiftRng.from_seed(SEED), [proof], [[35]], use_device_pairing=True)
     leaves = [Node.from_scalar(Scalar(i + 2)) for i in range(128)]
-    with pytest.raises(NotImplementedError, match="queue 1, item 4"):
-        FrozenCommitmentTree.new(leaves)
-    tree = FrozenCommitmentTree.new(leaves[:2])
-    assert tree.root() == tree.path(1).root(leaves[1]) and tree.size() == 2
+    calls, twin = [], TPED.batch_merkle_hash
+
+    def on_cpu(depth, pairs):
+        calls.append(len(pairs))
+        return twin(depth, pairs, device="cpu")
+
+    monkeypatch.setattr(TPED, "batch_merkle_hash", on_cpu)
+    monkeypatch.delenv("MASP_MERKLE_DEVICE_MIN", raising=False)
+    tree = FrozenCommitmentTree.new(leaves)
+    assert calls == [64]
+    monkeypatch.setenv("MASP_MERKLE_DEVICE_MIN", "0")
+    host = FrozenCommitmentTree.new(leaves)
+    assert tree == host and tree.root() == host.root() and calls == [64]
+    assert tree.root() == tree.path(77).root(leaves[77]) and tree.size() == 128
 
 
 def _to_jax(value):

@@ -1,9 +1,11 @@
 """Every CUDA kernel of the port against its plain PyTorch version on the
 card, bit for bit (integer arithmetic: the tolerance is exact equality), at
-small widths (1, 3, 32, 1003; the point adds also at 17, one pair past a
-block, and 128, the widest bucket chain) with the edge lanes first. The
-Montgomery product runs at each width in every operand form of the main
-path (strided and broadcast views, read in place) and on unaligned rows.
+small widths (1, 3, 32, 1003; the point adds, G1, G2 and Jubjub, also at
+17, one pair past a block, and 128, the widest bucket chain) with the edge
+lanes first. The Montgomery product runs at each width in every operand
+form of the main path (strided and broadcast views, read in place) and on
+unaligned rows. One case proves a tiny circuit on the card and holds the
+proof against the port's CPU proof of the same witness.
 
 This file imports neither jax nor masp_tpu, so it runs where only the port
 is installed; every test is marked ``cuda`` and skips without a card. Run it
@@ -23,14 +25,26 @@ import numpy as np
 import pytest
 import torch
 
+from masp_tpu_torch import groth16 as TG
+from masp_tpu_torch.groth16 import prover as TP
+from masp_tpu_torch.groth16 import synthesis as S
 from masp_tpu_torch.host.bls12_381 import G1, G2
+from masp_tpu_torch.host.fields import SCALAR_MODULUS, JubjubFr, Scalar
+from masp_tpu_torch.host.jubjub import ExtendedPoint
+from masp_tpu_torch.host.primitives.constants import spending_key_generator
+from masp_tpu_torch.host.r1cs.cs import ONE, KeypairAssembly, lc_var
+from masp_tpu_torch.host.structures import prepare_verifying_key
+from masp_tpu_torch.host.verifier import verify_proof
 from masp_tpu_torch.kernels import LAUNCHES
 from masp_tpu_torch.kernels import affine as AK
 from masp_tpu_torch.kernels import int8_dot as I8
+from masp_tpu_torch.kernels import jubjub as KJ
 from masp_tpu_torch.kernels import mont_mul as MK
 from masp_tpu_torch.kernels import mont_mul_mxu as MX
 from masp_tpu_torch.kernels import point_add as PA
 from masp_tpu_torch.ops import field as F
+from masp_tpu_torch.ops import jubjub as J
+from masp_tpu_torch.ops import pedersen as PED
 from masp_tpu_torch.ops import weierstrass as W
 from masp_tpu_torch.ops.field import FQ, FR
 
@@ -230,6 +244,101 @@ def check_mont_mul_mxu(dev, width):
     assert torch.equal(got, MK.mont_mul_plain(FQ, a, b))
 
 
+def _jubjub_rows(width, seed, dev):
+    """(P, Q) (width, 48) rows of Jubjub points: O + O, P + P, P + (-P),
+    O + P, P + O, the order-2 point twice, then distinct points of a chain;
+    P with general Z (sums of encoded points), Q encoded (Z = 1)."""
+    g = spending_key_generator()
+    p = g * JubjubFr(random.Random(seed).randrange(1, 1 << 64))
+    pts = []
+    for _ in range(40):
+        pts.append(p)
+        p = p + g
+    O, t = ExtendedPoint.identity(), ExtendedPoint.from_affine(Scalar(0), Scalar(SCALAR_MODULUS - 1))
+    p1 = [O, pts[0], pts[1], O, pts[2], t] + pts[3:20]
+    p2 = [O, pts[0], -pts[1], pts[3], O, t] + pts[20:37]
+    reps = -(-width // len(p1))
+    P, Q = (torch.as_tensor(np.concatenate(J.encode_points((x * reps)[:width]), axis=1).astype(np.int32),
+                            device=dev) for x in (p1, p2))
+    lam = _field_rows(FR, width + 5, seed, dev)[5:]  # non-zero: (X : Y : Z) = (lam X : lam Y : lam Z)
+    P = torch.cat([MK.mont_mul_plain(FR, P[:, 16 * i : 16 * (i + 1)], lam) for i in range(3)], dim=1)
+    return P, Q
+
+
+def check_jubjub_add(dev, width):
+    """The Edwards add on contiguous and strided rows (the MSM ladder's
+    even and odd views), against its plain version and the host curve."""
+    P, Q = _jubjub_rows(width, 50, dev)
+    want = KJ.jubjub_add_plain(P, Q)
+    pairs = torch.cat([P, Q], dim=1)
+    assert torch.equal(_launched("jubjub_add", lambda: KJ.jubjub_add(P, Q)), want)
+    assert torch.equal(_launched("jubjub_add", lambda: KJ.jubjub_add(pairs[:, :48], pairs[:, 48:])), want)
+    dec = [J.decode_points(*(r[:, 16 * i : 16 * (i + 1)] for i in range(3))) for r in (P, Q, want)]
+    assert dec[2] == [a + b for a, b in zip(dec[0], dec[1])]
+
+
+def check_fr_sqrt(dev, width):
+    """The square root: roots and flags against the plain version; a root
+    squares to its input exactly where the host's Euler criterion says one
+    exists."""
+    a = _field_rows(FR, width, 6, dev)
+    root, ok = _launched("fr_sqrt", lambda: KJ.fr_sqrt(a))
+    want_root, want_ok = KJ.fr_sqrt_plain(a)
+    assert torch.equal(root, want_root) and torch.equal(ok, want_ok)
+    vals, roots = F.decode(FR, a), F.decode(FR, root)
+    for v, r, k in zip(vals, roots, ok.tolist()):
+        assert k == (v == 0 or pow(v, (FR.modulus - 1) // 2, FR.modulus) == 1)
+        assert not k or r * r % FR.modulus == v
+
+
+def check_pedersen_fold(dev, width):
+    """The fold over the Merkle hash's 172 chunks, seeded digits, against
+    its plain version."""
+    table = PED._chunk_tables(172, dev)
+    idx = torch.as_tensor(np.random.default_rng(60 + width).integers(0, 9, (172, width), dtype=np.int32), device=dev)
+    assert torch.equal(_launched("pedersen_fold", lambda: KJ.pedersen_fold(table, idx)),
+                       KJ.pedersen_fold_plain(table, idx))
+
+
+class _Cubic:
+    """x^3 + x + 5 == out, over the port's constraint systems."""
+
+    def __init__(self, x=None):
+        self.x = x
+
+    def synthesize(self, cs):
+        x = self.x
+        xv = cs.alloc("x", x)
+        x2 = cs.alloc("x2", None if x is None else x * x % FR.modulus)
+        cs.enforce("x2", lc_var(xv), lc_var(xv), lc_var(x2))
+        x3 = cs.alloc("x3", None if x is None else pow(x, 3, FR.modulus))
+        cs.enforce("x3", lc_var(x2), lc_var(xv), lc_var(x3))
+        out = cs.alloc_input("out", None if x is None else (pow(x, 3, FR.modulus) + x + 5) % FR.modulus)
+        cs.enforce("out", lc_var(x3) + xv + (5, ONE), lc_var(ONE), lc_var(out))
+
+
+def check_card_proof(dev):
+    """A tiny proof on the card equals the port's CPU proof of the same
+    witness and (r, s) byte for byte, and verifies (the CPU tests hold the
+    CPU proof against the JAX package's host_proof)."""
+    kcs = KeypairAssembly()
+    _Cubic().synthesize(kcs)
+    S.add_input_constraints(kcs)
+    params = TG.generate_parameters(S.assembly_from_cs(kcs), 11, 13, 17, 19, 23, device="cpu")
+    asm, _ = S.synthesize_witness(_Cubic(3), use_tape=False)
+    c = TP.MSM_C
+    TP.MSM_C = 4  # halves the CPU proof's bucket chains; the proof does not depend on it
+    try:
+        before = LAUNCHES["g1_add"]
+        on_card = TG.create_proof_from_assembly(asm, params, 3, 4, device=dev)
+        assert LAUNCHES["g1_add"] > before
+        on_cpu = TG.create_proof_from_assembly(asm, params, 3, 4, device="cpu")
+    finally:
+        TP.MSM_C = c
+    assert on_card.write() == on_cpu.write()
+    assert verify_proof(prepare_verifying_key(params.vk), on_card, [35])
+
+
 CASES = (
     [(check_mont_mul, (name, w, form)) for name in SPECS for w in WIDTHS for form in mont_mul_forms(w)]
     + [(check_mont_inv, (name, w)) for name in SPECS for w in WIDTHS]
@@ -238,6 +347,10 @@ CASES = (
     + [(check_affine_pre_post, (g, w)) for g in (1, 2) for w in WIDTHS]
     + [(check_int8_dot, (w,)) for w in WIDTHS]
     + [(check_mont_mul_mxu, (w,)) for w in WIDTHS]
+    + [(check_jubjub_add, (w,)) for w in ADD_WIDTHS]
+    + [(check_fr_sqrt, (w,)) for w in WIDTHS]
+    + [(check_pedersen_fold, (w,)) for w in WIDTHS]
+    + [(check_card_proof, ())]
 )
 
 

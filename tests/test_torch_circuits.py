@@ -60,15 +60,17 @@ FUNCTION_COPIES = {
     "tools/fixtures.py": ("bench.py", ("_spend_fixture", "_convert_fixture", "_output_fixture")),
 }
 # the only copies with marked departures from their source: the device
-# branches that raise until the port has its device twins (first line of
-# the block: the raise), the native library's build, and the port's
-# Parameters where the proving keys are taken, loaded or written
-DEVICE_BRANCHES = {"host/primitives/redjubjub.py", "host/primitives/merkle_tree.py", "host/verifier.py"}
+# branch that raises until the port has its device twin (first line of the
+# block: the raise), the native library's build, and the port's Parameters
+# where the proving keys are taken, loaded or written
+DEVICE_BRANCHES = {"host/verifier.py"}
 DEPARTURES = DEVICE_BRANCHES | {
     "host/native/__init__.py", "groth16/sapling_prover.py", "groth16/params_io.py",
     "groth16/local_prover.py"}
 # port import path -> source import path, the first match per import line
 IMPORTS = [
+    ("masp_tpu_torch.ops.pedersen", "masp_tpu.ops.pedersen_jax"),
+    ("masp_tpu_torch.ops.jubjub", "masp_tpu.ops.jubjub_jax"),
     ("masp_tpu_torch.groth16.synthesis import add_input_constraints as _add_input_constraints",
      "masp_tpu.groth16.generator import _add_input_constraints"),
     ("masp_tpu_torch.host.encoding", "masp_tpu.utils.encoding"),

@@ -151,16 +151,18 @@ def test_mont_mul_reads_views_through_row_maps(name, monkeypatch):
 
 @pytest.mark.parametrize("name", ["Fr", "Fq"])
 def test_plain_mont_mul_small_batches_match_limb_path(name):
-    """Up to 16 rows the plain product runs on Python ints: the same limbs
-    as the limb path, inputs at or above the modulus (below R) included."""
+    """Up to MK.INT_ROWS rows the plain product runs on Python ints: the
+    same limbs as the limb path, inputs at or above the modulus (below R)
+    included."""
     spec, _ = SPECS[name]
     rng = np.random.default_rng(7)
+    k = MK.INT_ROWS
     edge = [0, 1, spec.modulus - 1, spec.modulus, spec.modulus + 1, spec.R - 1]
-    vals = edge + [int(rng.integers(0, 1 << 62)) * spec.R // (1 << 62) for _ in range(42)]
+    vals = edge + [int(rng.integers(0, 1 << 62)) * spec.R // (1 << 62) for _ in range(3 * k - len(edge))]
     a = _t(LT.ints_to_limbs(vals, spec.L))
     b = _t(LT.ints_to_limbs(vals[::-1], spec.L))
-    want = MK.mont_mul_plain(spec, a, b)  # 48 rows: the limb path
-    got = torch.cat([MK.mont_mul_plain(spec, a[i : i + 16], b[i : i + 16]) for i in range(0, 48, 16)])
+    want = MK.mont_mul_plain(spec, a, b)  # 3 INT_ROWS rows: the limb path
+    got = torch.cat([MK.mont_mul_plain(spec, a[i : i + k], b[i : i + k]) for i in range(0, 3 * k, k)])
     assert torch.equal(got, want)
 
 

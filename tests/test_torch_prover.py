@@ -189,6 +189,52 @@ def test_split_proof_matches_host_reference(small_window, ladder, monkeypatch):
     assert verify_proof(prepare_verifying_key(tparams.vk), proof, [v * v + (bits[0] ^ bits[1])])
 
 
+def test_msm_flags_are_read_or_raise(monkeypatch):
+    """The JAX package's MSM variables that the port implements are read at
+    import with the port's defaults, and MASP_MSM_SPLIT=0 keeps every query
+    whole where the split would run; a value the port does not implement
+    raises ValueError."""
+    import subprocess
+    import sys
+
+    assert TP.msm_flags({}) == {"MSM_C": 8, "MSM_SPLIT": True, "MSM_SPLIT_MIN": 32768}
+    assert TP.msm_flags({"MASP_MSM_C": "4", "MASP_MSM_SPLIT": "0", "MASP_MSM_SPLIT_MIN": "2",
+                         "MASP_ABC_DEVICE": "1"}) == {"MSM_C": 4, "MSM_SPLIT": False, "MSM_SPLIT_MIN": 2}
+    assert MS.ladder_flags({}) == (False, 4)
+    assert MS.ladder_flags({"MASP_MSM_AFFINE": "1", "MASP_MSM_AFFINE_LEVELS": "2",
+                            "MASP_MSM_WIDE_REDUCE": "1"}) == (True, 2)
+    for env in ({"MASP_MSM_SIGNED": "1"}, {"MASP_MSM_FUSED": "1"}, {"MASP_MSM_BGMW_H": "1"},
+                {"MASP_ABC_DEVICE": "0"}, {"MASP_MSM": "lanes"}, {"MASP_MSM_C": "17"}):
+        with pytest.raises(ValueError, match=next(iter(env)) + "="):
+            TP.msm_flags(env)
+    with pytest.raises(ValueError, match="MASP_MSM_WIDE_REDUCE=1"):
+        MS.ladder_flags({"MASP_MSM_WIDE_REDUCE": "1"})
+    with pytest.raises(ValueError, match="MASP_MSM_AFFINE="):
+        MS.ladder_flags({"MASP_MSM_AFFINE": "yes"})
+    monkeypatch.setattr(MS, "AFFINE_LADDER", True)
+    with pytest.raises(ValueError, match="26 windows"):
+        TP.msm_flags({"MASP_MSM_C": "10"})
+    code = ("from masp_tpu_torch.groth16 import prover as P; from masp_tpu_torch.ops import msm_sorted as M; "
+            "print(P.MSM_C, P.MSM_SPLIT, P.MSM_SPLIT_MIN, M.AFFINE_LADDER, M.AFFINE_LEVELS)")
+    env = {**os.environ, "MASP_MSM_C": "4", "MASP_MSM_SPLIT": "0", "MASP_MSM_SPLIT_MIN": "9",
+           "MASP_MSM_AFFINE": "1", "MASP_MSM_AFFINE_LEVELS": "3"}
+    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=REPO, capture_output=True, text=True,
+                         timeout=300, check=True).stdout
+    assert out.split() == ["4", "False", "9", "True", "3"]
+
+    monkeypatch.setattr(MS, "AFFINE_LADDER", False)
+    params, _ = _host_params(BitsCircuit())
+    tparams = _port_params(params)
+    _, asm = _witness(BitsCircuit([1, 0, 1, 1, 0, 1]))
+    TP.prepare_device_params(tparams, "cpu")
+    monkeypatch.setattr(TP, "MSM_SPLIT_MIN", 2)
+    TP.prepare_split_queries(tparams, asm)
+    assert "l_small" in tparams.device
+    monkeypatch.setattr(TP, "MSM_SPLIT", False)
+    TP.prepare_split_queries(tparams, asm)
+    assert not any(k.endswith("_small") for k in tparams.device)
+
+
 def test_h_coefficients_match_host_reference():
     """The device a/b/c evaluation and h pipeline of the prover against
     reference.host_h_coeffs on a circuit with bit wires."""
@@ -290,13 +336,3 @@ def test_gadget_circuit_proof_matches_jax_prover(small_window):
     u, v = host_pedersen_hash(JPersonalization.note_commitment(),
                               [(value >> i) & 1 == 1 for i in range(64)]).to_affine()
     assert verify_proof(prepare_verifying_key(tparams.vk), got, [u.n, v.n])
-
-
-@pytest.mark.cuda
-def test_proof_on_card_matches_cpu(small_window):
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device")
-    params, _ = _host_params(BitsCircuit())
-    cs, asm = _witness(BitsCircuit([1, 1, 0, 1, 0, 0]))
-    on_card = TG.create_proof_from_assembly(asm, _port_params(params), 3, 4, device="cuda")
-    assert on_card.write() == REF.host_proof(cs, params, 3, 4).write()
