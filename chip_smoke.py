@@ -81,6 +81,10 @@ SPEND = {"inputs": 8, "aux": 100_497, "constraints": 100_645, "nnz_a": 262_108,
 HBM_BYTES_PER_S = 3.35e12
 IMAD_PER_S = 132 * 64 * 1.98e9
 INT8_MAC_PER_S = 989.5e12
+# 32-bit operations of one divstep as csrc/mont_mul.cu's divsteps_30 writes
+# it: the two masks (3), the masked updates of g, q, r (4 each) and of f, u,
+# v (2 each), the swap mask (1), delta (3) and the three shifts
+DIVSTEP_OPS = 28
 L2_BYTES = 50 * 2**20  # the H100 SXM's L2 cache
 
 REPLACES = {
@@ -818,42 +822,76 @@ def g1_block_phase(x, y, want, nbytes: int, card: str) -> None:
         f"block: {'; '.join(times.values())} (in a CUDA graph; chains at widths 1 / 128) on {card}")
 
 
+def _divstep_ops(spec) -> int:
+    """32-bit operations of one row of mont_inv_kernel<F>: per batch, 30
+    divsteps of DIVSTEP_OPS each and 10 K + 2 32 x 32 -> 64-bit products
+    at 2 IMADs each (4 K for t (f, g), 4 K + 2 K for t (d, e) + N (md,
+    me), 2 by N^-1 mod 2^30), then one fe_mul by R^3 (2 (2 W^2 + W))."""
+    from masp_tpu_torch.kernels import mont_mul as MK
+
+    c, w = MK.divstep_constants(spec), spec.L // 2
+    return c.batches * (MK.DIVSTEPS * DIVSTEP_OPS + 2 * (10 * c.limbs + 2)) + 2 * (2 * w * w + w)
+
+
 def inverse_kernel_phase(spec, dev, rng, card: str) -> dict:
-    """The inversion kernel of ``spec`` (Fr or Fq) bit for bit against its
-    plain chain at 1, 2 and 1003 rows (0, 1, N - 1, 2, N - 2, the raw 1 and
-    mont-1 among the first rows), and its time at the proof path's width,
-    one row, beside the eager chain of mont_mul launches that it replaces."""
+    """The inversion kernel of ``spec`` (Fr or Fq; the divstep GCD) bit for
+    bit against its plain version and host ints at 1, 2, 3, 32 and 1003
+    rows, and against the Fermat chain over the plain product at 32 (0, 1,
+    N - 1, 2, N - 2, the raw 1 and mont-1 among the first rows), and 0 -> 0;
+    then its time at the proof path's width, one row, and at 1003 rows,
+    beside the eager chain of mont_mul launches that the kernel replaces.
+    The bound counts the divstep kernel's own 32-bit operations
+    (``_divstep_ops``), though one row's dependent chain bounds it
+    (sass_report gives the chain's length)."""
+    import torch
+
     from masp_tpu_torch.kernels import mont_mul as MK
     from masp_tpu_torch.ops import field as F
 
     name = "mont_inv_" + spec.name.lower()
     a, _ = _field_inputs(spec, 1003, rng, dev)
+    n_mod = spec.modulus
+    host = torch.as_tensor(F.encode(spec, [pow(x, n_mod - 2, n_mod) for x in F.decode(spec, a)]).astype(np.int32),
+                           device=dev)
     err = 0.0
-    for n in (1, 2, 1003):
-        err = max(err, _check_equal(f"{name} ({n} rows)", MK.mont_inv(spec, a[:n]), MK.mont_inv_plain(spec, a[:n])))
+    for n in (1, 2, 3, 32, 1003):
+        got = MK.mont_inv(spec, a[:n])
+        err = max(err, _check_equal(f"{name} ({n} rows)", got, MK.mont_inv_plain(spec, a[:n])))
+        _check_equal(f"{name} ({n} rows) against host pow(x, N - 2, N)", got, host[:n])
+    _check_equal(f"{name} against the Fermat chain over the plain product (32 rows)", MK.mont_inv(spec, a[:32]),
+                 MK.fermat_chain(spec, a[:32], lambda x, y: MK.mont_mul_plain(spec, x, y)))
     if F.decode(spec, MK.mont_inv(spec, a[:1])) != [0]:
         raise AssertionError(f"{name}: 0 does not map to 0")
     row = a[3:4]  # the Montgomery form of 2
-    # the table, then 4 + 1 per lower nibble: 489 for Fq, 329 for Fr
+    # the Fermat chain: the table, then 4 + 1 per lower nibble: 489 for Fq, 329 for Fr
     chain = 14 + 5 * (len(spec.inv_exp_nibbles) - 1)
-    w = spec.L // 2
 
     def old_chain():
         return MK.fermat_chain(spec, row, lambda x, y: F.mont_mul(spec, x, y))
 
     _check_equal(f"{name} vs the mont_mul chain", MK.mont_inv(spec, row), old_chain())
+
+    def timed(rows):
+        return _kernel_ms(lambda x: MK.mont_inv(spec, x), (rows,), 2 * rows.shape[0] * spec.L * 4, launches=20,
+                          from_hbm=False)
+
     r = {
         "n": 1, "max_abs_err": err,
-        "ms": _kernel_ms(lambda x: MK.mont_inv(spec, x), (row,), 2 * spec.L * 4, launches=20, from_hbm=False),
+        "ms": timed(row),
         "eager_ms": _median_ms(lambda: MK.mont_inv(spec, row), 10),
         "plain_ms": _median_ms(lambda: MK.mont_inv_plain(spec, row), 3),
-        "ops_ms": _imad_ms(chain * 2 * (2 * w * w + w)), "bytes": 2 * spec.L * 4,
+        "ops_ms": _imad_ms(_divstep_ops(spec)), "bytes": 2 * spec.L * 4,
         "inputs": "one row, latency-bound",
+        "ms_1003": timed(a),
     }
-    wide = _kernel_ms(lambda x: MK.mont_inv(spec, x), (a,), 2 * 1003 * spec.L * 4, launches=20, from_hbm=False)
-    log(f"kernel {name}: {r['ms']:.4f} ms per launch in a CUDA graph at 1 row ({wide:.4f} ms at 1003 rows), "
-        f"{r['eager_ms']:.4f} ms eager; the {chain}-launch eager mont_mul_{spec.name.lower()} chain it replaces: "
-        f"{_median_ms(old_chain, 3):.3f} ms (median of 3) on {card}")
+    from masp_tpu_torch.kernels import build
+
+    log(f"kernel {name}: ptxas {ptxas_report(build)[name]} (registers, shared bytes, spill)")
+    log(f"kernel {name}: {r['ms']:.4f} ms per launch in a CUDA graph at 1 row ({r['ms_1003']:.4f} ms at 1003 "
+        f"rows), {r['eager_ms']:.4f} ms eager; plain (the divstep GCD on Python ints at 1 row) {r['plain_ms']:.3f} "
+        f"ms; operations {_divstep_ops(spec)} a row, {r['ops_ms']:.7f} ms at the INT32 rate; the "
+        f"{chain}-launch eager mont_mul_{spec.name.lower()} chain: {_median_ms(old_chain, 3):.3f} ms (median of 3) "
+        f"on {card}")
     return r
 
 
@@ -1174,8 +1212,8 @@ def prove_phase(label, asm, params, rs, check, card, dev, must_launch):
 def profile_proof(label, asm, params, rs, dev, card):
     """One proof under torch.profiler (device activity only): the device's
     busy time against the wall time, its activities and PyTorch's copy
-    kernels, the kernels that take the most, and every point add and
-    Montgomery product."""
+    kernels, the kernels that take the most, and every point add,
+    Montgomery product and inversion."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1196,8 +1234,8 @@ def profile_proof(label, asm, params, rs, dev, card):
         f"{sum(e.self_device_time_total for e in copies) / 1e3:.2f} ms in {sum(e.count for e in copies)} launches")
     for e in sorted(events, key=lambda e: e.self_device_time_total, reverse=True)[:12]:
         log(f"[{label}]   {e.self_device_time_total / 1e3:9.2f} ms {e.count:7d} calls  {e.key[:90]}")
-    for e in events:  # every point-add instance (the leaf forms among them) and Montgomery product
-        if "add_kernel" in e.key or "mont_mul_kernel" in e.key:
+    for e in events:  # every point-add instance (the leaf forms among them), product and inversion
+        if "add_kernel" in e.key or "mont_mul_kernel" in e.key or "mont_inv_kernel" in e.key:
             log(f"[{label}]   kernel: {e.self_device_time_total / 1e3:.2f} ms {e.count} calls  {e.key[:90]}")
 
 
@@ -1914,15 +1952,54 @@ def ptxas_report(build) -> dict:
     return out
 
 
+def _sass_functions(text: str) -> dict:
+    """{function: [(address, opcode, operands)]} from cuobjdump -sass
+    output, NOPs left out; opcodes without their modifiers (IMAD.WIDE is
+    IMAD)."""
+    import re
+
+    funcs, fn = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1)
+            funcs[fn] = []
+            continue
+        m = re.search(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)([^;]*)", line)
+        if m and fn and m.group(2) != "NOP":
+            funcs[fn].append((int(m.group(1), 16), m.group(2), m.group(3)))
+    return funcs
+
+
+def _loop_body(ins: list):
+    """The instructions of the function's one loop: from the target of its
+    one backward branch to that branch (None unless there is exactly one)."""
+    import re
+
+    back = []
+    for addr, op, rest in ins:
+        m = re.search(r"0x([0-9a-f]+)", rest) if op == "BRA" else None
+        if m and int(m.group(1), 16) < addr:
+            back.append((int(m.group(1), 16), addr))
+    if len(back) != 1:
+        return None
+    lo, hi = back[0]
+    return [x for x in ins if lo <= x[0] <= hi]
+
+
 def sass_report(build) -> dict:
     """Static SASS instructions of each mont_mul_kernel instance in the
     built library (cuobjdump -sass): one thread runs the function once for
     its one product, so this is the count per product, both load paths
     (16-byte and 4-byte) included; with the IMAD family and IADD3 among
-    them."""
-    import re
+    them. For each mont_inv_kernel instance, the static count, its batch
+    loop's body and the instructions one row runs: the rest once and the
+    body once a batch (no branch inside it depends on the data)."""
     from collections import Counter
     from pathlib import Path
+
+    from masp_tpu_torch.kernels import mont_mul as MK
+    from masp_tpu_torch.ops.field import FQ, FR
 
     tool = Path(build.nvcc_path()).parent / "cuobjdump"
     if not tool.exists():
@@ -1930,26 +2007,37 @@ def sass_report(build) -> dict:
         return {}
     text = subprocess.run([str(tool), "-sass", str(build.lib_path("mont_mul"))], capture_output=True, text=True,
                           timeout=120, check=True).stdout
-    counts, fn = {}, None
-    for line in text.splitlines():
-        m = re.search(r"Function : (\S+)", line)
-        if m:
-            fn = m.group(1)
-            counts[fn] = Counter()
-            continue
-        m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", line)
-        if m and fn and m.group(1) != "NOP":
-            counts[fn][m.group(1)] += 1
-    out = {}
-    for name, part in (("mont_mul_fr", "mont_mul_kernelI2Fr"), ("mont_mul_fq", "mont_mul_kernelI2Fq")):
-        found = [c for f, c in counts.items() if part in f]
+    funcs = _sass_functions(text)
+
+    def one(part):
+        found = [ins for f, ins in funcs.items() if part in f]
         if len(found) != 1:
             raise AssertionError(f"sass: {len(found)} functions of mont_mul.cu match {part}")
-        c = found[0]
+        return found[0]
+
+    out = {}
+    for name, part in (("mont_mul_fr", "mont_mul_kernelI2Fr"), ("mont_mul_fq", "mont_mul_kernelI2Fq")):
+        c = Counter(op for _, op, _ in one(part))
         out[name] = {"instructions": sum(c.values()), "imad": c["IMAD"], "iadd3": c["IADD3"],
                      "top": dict(c.most_common(8))}
         log(f"  sass {name}: {out[name]['instructions']} instructions per product (static, both load paths), "
             f"IMAD family {c['IMAD']}, IADD3 {c['IADD3']}; most frequent {json.dumps(out[name]['top'])}")
+    for name, part, spec in (("mont_inv_fr", "mont_inv_kernelI2Fr", FR), ("mont_inv_fq", "mont_inv_kernelI2Fq", FQ)):
+        ins = one(part)
+        body = _loop_body(ins)
+        batches = MK.divstep_constants(spec).batches
+        r = {"instructions": len(ins), "top": dict(Counter(op for _, op, _ in ins).most_common(8))}
+        if body is None:
+            log(f"  sass {name}: {len(ins)} instructions (static); no single batch loop found: the chain's length "
+                f"not measured")
+        else:
+            c = Counter(op for _, op, _ in body)
+            r.update(loop=len(body), per_row=len(ins) - len(body) + batches * len(body),
+                     loop_top=dict(c.most_common(8)))
+            log(f"  sass {name}: {len(ins)} instructions (static), the batch loop's body {len(body)} (IMAD family "
+                f"{c['IMAD']}), so {r['per_row']} a row over {batches} batches; the body's most frequent "
+                f"{json.dumps(r['loop_top'])}")
+        out[name] = r
     return out
 
 

@@ -1,5 +1,5 @@
 // Batched Montgomery product a * b * R^-1 mod N for Fr (L = 16) and Fq (L = 24),
-// and the Fermat inversion a^(N-2) as one launch (mont_inv_kernel, below).
+// and the inversion, a divstep GCD with one thread a row (mont_inv_kernel, below).
 //
 // mont_mul_kernel<F> replaces the Pallas kernel _mont_mul_kernel
 // (masp_tpu/kernels/field_kernels.py:350, its pallas_call at :636, reached
@@ -182,93 +182,265 @@ extern "C" int masp_mont_mul_fq(const int32_t* a, long long a_inner, long long a
   return launch<Fq>({a, a_inner, a_outer, a_stride}, {b, b_inner, b_outer, b_stride}, out, n, stream);
 }
 
-// --- Fermat inversion: out = a^(N-2), one launch per chain ----------------------
+// --- inversion: a divstep GCD, one launch for a batch of rows ---------------------
 //
-// Replaces the chain of _mont_mul_kernel launches that
-// masp_tpu/ops/field_jax.py:233 mont_inv_small runs (one lax.scan over the
-// Pallas product), for Fq and for Fr: in Fq the root inverse of every
-// batch-affine ladder level and of every batched inversion (the fetch's
-// to_affine). The plain version is mont_inv_plain in kernels/mont_mul.py,
-// the same 4-bit fixed-window chain over the plain product: table a^0 ..
-// a^15 (14 products), then for each lower nibble of N - 2 four squarings and
-// one table product: 14 + 95 x 5 = 489 products for Fq, 14 + 63 x 5 = 329
-// for Fr. The inverse is unique and fe_mul fully reduces, so the limbs equal
-// the chain's whatever order it runs in; 0 maps to 0.
+// mont_inv_kernel<F> replaces masp_tpu/ops/field_jax.py:233 mont_inv_small,
+// a lax.scan of 4-bit fixed-window Fermat steps over the Pallas product
+// _mont_mul_kernel (masp_tpu/kernels/field_kernels.py:350): a^(N-2), 489
+// dependent products for Fq and 329 for Fr. In Fq it inverts the root of
+// every batched inversion (the fetch's to_affine, each batch-affine ladder
+// level); in Fr that of the Jubjub path's (decompression, the bulk Merkle
+// tree). The plain version is mont_inv_plain in kernels/mont_mul.py, the
+// same algorithm step for step in int64 tensors (on Python ints for a few
+// rows).
 //
-// Bound: latency. The chain is dependent products; on the proof path it
-// runs on one or two rows, so one thread walks it with the accumulator in
-// registers, the table in shared memory (one 16-entry table per row, words
-// lane-minor so a warp's table reads hit 32 banks) and the exponent's nibbles
-// in constant memory (every lane reads the same nibble: a broadcast). Its cost
-// is the chain's (2 W^2 + W) multiply-adds a product on one thread instead
-// of one launch per product from the host.
-
-// q - 2 and r - 2 in base 16, most significant nibble first
-static __constant__ uint8_t FQ_INV_NIBBLES[96] = {
-    1, 10, 0, 1, 1, 1, 14, 10, 3, 9, 7, 15, 14, 6, 9, 10, 4, 11, 1, 11, 10, 7, 11, 6,
-    4, 3, 4, 11, 10, 12, 13, 7, 6, 4, 7, 7, 4, 11, 8, 4, 15, 3, 8, 5, 1, 2, 11, 15,
-    6, 7, 3, 0, 13, 2, 10, 0, 15, 6, 11, 0, 15, 6, 2, 4, 1, 14, 10, 11, 15, 15, 15, 14,
-    11, 1, 5, 3, 15, 15, 15, 15, 11, 9, 15, 14, 15, 15, 15, 15, 15, 15, 15, 15, 10, 10, 10, 9,
-};
-static __constant__ uint8_t FR_INV_NIBBLES[64] = {
-    7, 3, 14, 13, 10, 7, 5, 3, 2, 9, 9, 13, 7, 13, 4, 8, 3, 3, 3, 9, 13, 8, 0, 8,
-    0, 9, 10, 1, 13, 8, 0, 5, 5, 3, 11, 13, 10, 4, 0, 2, 15, 15, 15, 14, 5, 11, 15, 14,
-    15, 15, 15, 15, 15, 15, 15, 14, 15, 15, 15, 15, 15, 15, 15, 15,
-};
-
-template <class F>
-struct InvExp;
-template <>
-struct InvExp<Fq> {
-  static constexpr int NIBBLES = 96;
-  __device__ __forceinline__ static int nib(int r) { return FQ_INV_NIBBLES[r]; }
-};
-template <>
-struct InvExp<Fr> {
-  static constexpr int NIBBLES = 64;
-  __device__ __forceinline__ static int nib(int r) { return FR_INV_NIBBLES[r]; }
-};
+// Algorithm: Bernstein and Yang's constant-time extended GCD ("Fast
+// constant-time gcd computation and modular inversion", 2019), in the 32-bit
+// form of libsecp256k1's modinv32. The input row is x = a R (Montgomery
+// form, R = 2^(32W)), packed into K signed 30-bit limbs (K = 13 for Fq, 9 for
+// Fr: |f|, |g| <= N and d, e in (-2N, N) with a sign). With f = N, g = x,
+// d = 0, e = 1 and delta = 1, each of BATCHES batches runs 30 branch-free
+// divsteps on the low limbs of f and g alone, which yields a transition
+// matrix scaled by 2^30 (entries in [-2^30, 2^30]: int32); the matrix is
+// applied to (f, g), divided by 2^30 exactly, and to (d, e), plus the
+// multiple of N (from N^-1 mod 2^30) that clears their low 30 bits. f = d x
+// and g = e x mod N hold throughout. The count is fixed: the paper's
+// Theorem 11.2 bounds the divsteps from delta = 1 that bring g to 0 by
+// floor((49 b + 80) / 17) for f^2 + 4 g^2 <= 5 2^(2b), here f = N < 2^b and
+// g < 2^b: 1,102 for Fq (b = 381; 37 batches, 1,110 steps) and 739 for Fr
+// (b = 255; 25 batches, 750). Then g = 0, f = +-1 (f = N for x = 0) and
+// x^-1 = sign(f) d, normalised into [0, N); one fe_mul by R^3 mod N gives
+// a^-1 R, the Montgomery form of the inverse. The inverse is unique and
+// fe_mul fully reduces, so the limbs equal the Fermat chain's
+// (kernels/mont_mul.fermat_chain) and host pow(x, N - 2, N); 0 maps to 0 (g =
+// 0 leaves d = 0). Every row runs the same instructions: no branch depends on
+// the data.
+//
+// Bound: latency. On the proof path the kernel sees one to a few rows, so
+// one thread walks one row's whole dependent chain, in registers (no shared
+// memory). The batches' loop body is the chain: 1,277 SASS instructions for
+// Fq and 1,139 for Fr (chip_smoke.py's "sass" lines, from cuobjdump -sass),
+// about 28 a divstep (the masked updates of f, u, v and g, q, r are
+// single-word LOP3/IADD steps) and the rest the two matrix products, 32 x 32
+// -> 64-bit IMAD.WIDE carry chains; 48,767 instructions a row for Fq and
+// 29,272 for Fr, against the 489 (329) dependent CIOS products of the
+// Fermat chain it replaces. Measured (PERF.md): 0.046 ms (Fq) and
+// 0.027 ms (Fr) a launch at 1 row, launch included, about 1.9 cycles an
+// instruction at 1.98 GHz. The kernel table's operations bound counts this
+// kernel's own 32-bit operations (28 a divstep, 2 a 32 x 32 -> 64-bit
+// product; 41,448 a row for Fq, 25,872 for Fr: chip_smoke.py _divstep_ops)
+// at the card's INT32 rate, across all its lanes; one row's chain, not that
+// rate, sets the time. 32 threads a block keep the 1,003-row check one wave.
 
 constexpr int INV_THREADS = 32;
+constexpr int DIVSTEPS = 30;
+constexpr int32_t M30 = 0x3fffffff;
+
+// N in signed 30-bit limbs, little-endian
+static __constant__ int32_t FQ_N30[13] = {
+    0x3fffaaab, 0x27fbffff, 0x153ffffb, 0x2affffac, 0x30f6241e, 0x034a83da, 0x112bf673,
+    0x12e13ce1, 0x2cd76477, 0x1ed90d2e, 0x29a4b1ba, 0x3a8e5ff9, 0x001a0111};
+static __constant__ int32_t FR_N30[9] = {
+    0x00000001, 0x3ffffffc, 0x3fe5bfef, 0x2f6900bf, 0x21d80553, 0x27602026, 0x17d48333,
+    0x29d4ca67, 0x000073ed};
+// R^3 mod N in 32-bit words
+static __constant__ uint32_t FQ_R3[12] = {
+    0xd94ca1e0u, 0xed48ac6bu, 0x03a7adf8u, 0x315f831eu, 0x615e29ddu, 0x9a53352au,
+    0x921e1761u, 0x34c04e5eu, 0x65724728u, 0x2512d435u, 0x91755d4du, 0x0aa63460u};
+static __constant__ uint32_t FR_R3[8] = {
+    0x439b73afu, 0xc62c1807u, 0x8cf06990u, 0x1b3e0d18u, 0xc7b5f418u, 0x73d13c71u,
+    0xc8db33e9u, 0x6e2a5bb9u};
+
+template <class F>
+struct Inv;
+template <>
+struct Inv<Fq> {
+  static constexpr int K = 13;                  // signed 30-bit limbs
+  static constexpr int BATCHES = 37;            // 1,110 divsteps >= 1,102
+  static constexpr uint32_t NINV30 = 0x30003u;  // N^-1 mod 2^30
+  __device__ __forceinline__ static int32_t n30(int k) { return FQ_N30[k]; }
+  __device__ __forceinline__ static uint32_t r3(int j) { return FQ_R3[j]; }
+};
+template <>
+struct Inv<Fr> {
+  static constexpr int K = 9;
+  static constexpr int BATCHES = 25;  // 750 divsteps >= 739
+  static constexpr uint32_t NINV30 = 0x1u;
+  __device__ __forceinline__ static int32_t n30(int k) { return FR_N30[k]; }
+  __device__ __forceinline__ static uint32_t r3(int j) { return FR_R3[j]; }
+};
+
+// the transition matrix [[u, v], [q, r]] of a batch, scaled by 2^30
+struct Trans {
+  int32_t u, v, q, r;
+};
+
+// DIVSTEPS divsteps on the low 32 bits of f and g (only their low bits
+// decide), with eta = -delta: where delta > 0 and g is odd, (f, g) <- (g,
+// (g - f) / 2) and delta <- 1 - delta, else g <- (g + (g odd) f) / 2 and
+// delta <- 1 + delta. Masks, no branches. Returns the new eta.
+__device__ __forceinline__ int32_t divsteps_30(int32_t eta, uint32_t f, uint32_t g, Trans& t) {
+  uint32_t u = 1, v = 0, q = 0, r = 1;
+#pragma unroll
+  for (int i = 0; i < DIVSTEPS; i++) {
+    uint32_t c1 = (uint32_t)(eta >> 31);  // all ones where delta > 0
+    const uint32_t c2 = 0u - (g & 1u);    // all ones where g is odd
+    g += ((f ^ c1) - c1) & c2;            // g +- f where g is odd
+    q += ((u ^ c1) - c1) & c2;
+    r += ((v ^ c1) - c1) & c2;
+    c1 &= c2;  // the swap
+    eta = (eta ^ (int32_t)c1) - ((int32_t)c1 + 1);
+    f += g & c1;  // f <- the old g where swapped
+    u += q & c1;
+    v += r & c1;
+    g >>= 1;
+    u <<= 1;  // the matrix scales by 2^30 instead of halving g's row
+    v <<= 1;
+  }
+  t = {(int32_t)u, (int32_t)v, (int32_t)q, (int32_t)r};
+  return eta;
+}
+
+// (f, g) <- t (f, g) / 2^30, exact; limbs 0 .. K-2 in [0, 2^30), the top signed
+template <int K>
+__device__ __forceinline__ void update_fg(int32_t (&f)[K], int32_t (&g)[K], const Trans& t) {
+  int64_t cf = (int64_t)t.u * f[0] + (int64_t)t.v * g[0];
+  int64_t cg = (int64_t)t.q * f[0] + (int64_t)t.r * g[0];
+  cf >>= 30;
+  cg >>= 30;
+#pragma unroll
+  for (int k = 1; k < K; k++) {
+    cf += (int64_t)t.u * f[k] + (int64_t)t.v * g[k];
+    cg += (int64_t)t.q * f[k] + (int64_t)t.r * g[k];
+    f[k - 1] = (int32_t)cf & M30;
+    g[k - 1] = (int32_t)cg & M30;
+    cf >>= 30;
+    cg >>= 30;
+  }
+  f[K - 1] = (int32_t)cf;
+  g[K - 1] = (int32_t)cg;
+}
+
+// (d, e) <- (t (d, e) + N (md, me)) / 2^30 with (md, me) chosen so that the
+// sum's low 30 bits vanish, starting from t's column where d or e is
+// negative: d, e stay in (-2N, N) (libsecp256k1's update_de)
+template <class F>
+__device__ __forceinline__ void update_de(int32_t (&d)[Inv<F>::K], int32_t (&e)[Inv<F>::K], const Trans& t) {
+  using I = Inv<F>;
+  constexpr int K = I::K;
+  const int32_t sd = d[K - 1] >> 31, se = e[K - 1] >> 31;
+  int32_t md = (t.u & sd) + (t.v & se);
+  int32_t me = (t.q & sd) + (t.r & se);
+  int64_t cd = (int64_t)t.u * d[0] + (int64_t)t.v * e[0];
+  int64_t ce = (int64_t)t.q * d[0] + (int64_t)t.r * e[0];
+  md -= (int32_t)((I::NINV30 * (uint32_t)cd + (uint32_t)md) & (uint32_t)M30);
+  me -= (int32_t)((I::NINV30 * (uint32_t)ce + (uint32_t)me) & (uint32_t)M30);
+  cd += (int64_t)I::n30(0) * md;
+  ce += (int64_t)I::n30(0) * me;
+  cd >>= 30;
+  ce >>= 30;
+#pragma unroll
+  for (int k = 1; k < K; k++) {
+    cd += (int64_t)t.u * d[k] + (int64_t)t.v * e[k] + (int64_t)I::n30(k) * md;
+    ce += (int64_t)t.q * d[k] + (int64_t)t.r * e[k] + (int64_t)I::n30(k) * me;
+    d[k - 1] = (int32_t)cd & M30;
+    e[k - 1] = (int32_t)ce & M30;
+    cd >>= 30;
+    ce >>= 30;
+  }
+  d[K - 1] = (int32_t)cd;
+  e[K - 1] = (int32_t)ce;
+}
+
+template <int K>
+__device__ __forceinline__ void carry30(int32_t (&d)[K]) {
+#pragma unroll
+  for (int k = 0; k < K - 1; k++) {
+    d[k + 1] += d[k] >> 30;
+    d[k] &= M30;
+  }
+}
+
+// d in (-2N, N) -> sign(f) d in [0, N): add N if negative, negate where f <
+// 0, add N if negative
+template <class F>
+__device__ __forceinline__ void normalize(int32_t (&d)[Inv<F>::K], int32_t f_top) {
+  constexpr int K = Inv<F>::K;
+  int32_t add = d[K - 1] >> 31;
+#pragma unroll
+  for (int k = 0; k < K; k++) d[k] += Inv<F>::n30(k) & add;
+  const int32_t neg = f_top >> 31;
+#pragma unroll
+  for (int k = 0; k < K; k++) d[k] = (d[k] ^ neg) - neg;
+  carry30(d);
+  add = d[K - 1] >> 31;
+#pragma unroll
+  for (int k = 0; k < K; k++) d[k] += Inv<F>::n30(k) & add;
+  carry30(d);
+}
+
+// 32-bit words -> 30-bit limbs and back (compile-time offsets: limb k's bit
+// 0 lies 30 k - 32 j bits above word j's)
+template <class F>
+__device__ __forceinline__ void to_s30(int32_t (&s)[Inv<F>::K], const Fe<F>& a) {
+#pragma unroll
+  for (int k = 0; k < Inv<F>::K; k++) {
+    uint32_t x = 0;
+#pragma unroll
+    for (int j = 0; j < F::W; j++) {
+      const int off = 32 * j - 30 * k;
+      if (off > -32 && off < 30) x |= off >= 0 ? a.w[j] << off : a.w[j] >> -off;
+    }
+    s[k] = (int32_t)(x & (uint32_t)M30);
+  }
+}
+
+template <class F>
+__device__ __forceinline__ void from_s30(Fe<F>& a, const int32_t (&s)[Inv<F>::K]) {
+#pragma unroll
+  for (int j = 0; j < F::W; j++) {
+    uint32_t x = 0;
+#pragma unroll
+    for (int k = 0; k < Inv<F>::K; k++) {
+      const int off = 30 * k - 32 * j;
+      if (off > -30 && off < 32) x |= off >= 0 ? (uint32_t)s[k] << off : (uint32_t)s[k] >> -off;
+    }
+    a.w[j] = x;
+  }
+}
 
 template <class F>
 __global__ void __launch_bounds__(INV_THREADS)
 mont_inv_kernel(const int32_t* __restrict__ a, int32_t* __restrict__ out, long long n) {
-  constexpr int W = F::W;
-  __shared__ uint32_t table[16][W][INV_THREADS];
-  const int lane = threadIdx.x;
-  const long long i = (long long)blockIdx.x * INV_THREADS + lane;
-  Fe<F> x, p;
-  if (i < n) {
-    load(x, a + i * (2 * W));
-  } else {
+  using I = Inv<F>;
+  constexpr int K = I::K;
+  const long long i = (long long)blockIdx.x * INV_THREADS + threadIdx.x;
+  if (i >= n) return;
+  Fe<F> x;
+  load(x, a + i * (2 * F::W));
+  int32_t f[K], g[K], d[K], e[K];
+  to_s30<F>(g, x);
 #pragma unroll
-    for (int j = 0; j < W; j++) x.w[j] = 0;
+  for (int k = 0; k < K; k++) {
+    f[k] = I::n30(k);
+    d[k] = 0;
+    e[k] = k == 0 ? 1 : 0;
   }
-#pragma unroll
-  for (int j = 0; j < W; j++) {
-    table[0][j][lane] = F::one(j);
-    table[1][j][lane] = x.w[j];
+  int32_t eta = -1;  // -delta, delta = 1
+#pragma unroll 1
+  for (int b = 0; b < I::BATCHES; b++) {
+    Trans t;
+    eta = divsteps_30(eta, (uint32_t)f[0], (uint32_t)g[0], t);
+    update_de<F>(d, e, t);
+    update_fg<K>(f, g, t);
   }
-  p = x;
-  for (int k = 2; k < 16; k++) {
-    fe_mul(p, p, x);
+  normalize<F>(d, f[K - 1]);
+  Fe<F> inv, r3, y;
+  from_s30<F>(inv, d);
 #pragma unroll
-    for (int j = 0; j < W; j++) table[k][j][lane] = p.w[j];
-  }
-  Fe<F> acc, t;
-  const int top = InvExp<F>::nib(0);
-#pragma unroll
-  for (int j = 0; j < W; j++) acc.w[j] = table[top][j][lane];
-  for (int r = 1; r < InvExp<F>::NIBBLES; r++) {
-#pragma unroll
-    for (int s = 0; s < 4; s++) fe_mul(acc, acc, acc);
-    const int nib = InvExp<F>::nib(r);
-#pragma unroll
-    for (int j = 0; j < W; j++) t.w[j] = table[nib][j][lane];
-    fe_mul(acc, acc, t);
-  }
-  if (i < n) store(out + i * (2 * W), acc);
+  for (int j = 0; j < F::W; j++) r3.w[j] = I::r3(j);
+  fe_mul(y, inv, r3);
+  store(out + i * (2 * F::W), y);
 }
 
 template <class F>

@@ -145,8 +145,8 @@ def _plain_inv(r):
 
 def affine_level_plain(p1, p2):
     """Plain version of ``affine_level``: the same steps over the plain
-    pre/post versions, the plain Montgomery product and the Fermat chain
-    over it."""
+    pre/post versions, the plain Montgomery product and the plain
+    inversion."""
     return _level(affine_pre_plain, _plain_mul, _plain_inv, affine_post_plain, p1, p2)
 
 

@@ -137,10 +137,10 @@ def mont_inv(spec: FieldSpec, a):
 
 
 def mont_inv_small(spec: FieldSpec, a):
-    """Fermat inversion in 4-bit fixed windows (489 dependent products for
-    Fq instead of ~760, 329 for Fr), bit-identical to mont_inv; 0 maps to 0.
-    Runs the inversion kernel's wrapper (kernels/mont_mul.mont_inv): one
-    launch for the whole chain on a CUDA tensor, its plain chain on a CPU
+    """The inverse in Montgomery form, bit-identical to mont_inv and to the
+    JAX package's mont_inv_small (4-bit fixed-window Fermat steps); 0 maps
+    to 0. Runs the inversion kernel's wrapper (kernels/mont_mul.mont_inv, a
+    divstep GCD): one launch on a CUDA tensor, its plain version on a CPU
     one."""
     rows = a.reshape(-1, spec.L).to(torch.int32).contiguous()
     return MK.mont_inv(spec, rows).reshape(a.shape)

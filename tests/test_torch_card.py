@@ -1,8 +1,9 @@
 """Every CUDA kernel of the port against its plain PyTorch version on the
 card, bit for bit (integer arithmetic: the tolerance is exact equality), at
 small widths (1, 3, 32, 1003; the point adds, G1, G2 and Jubjub, also at
-17, one pair past a block, and 128, the widest bucket chain) with the edge
-lanes first. The Montgomery product runs at each width in every operand
+17, one pair past a block, and 128, the widest bucket chain; the inversion
+also at 2, and against the Fermat chain and host ints) with the edge lanes
+first. The Montgomery product runs at each width in every operand
 form of the main path (strided and broadcast views, read in place) and on
 unaligned rows. One case proves a tiny circuit on the card and holds the
 proof against the port's CPU proof of the same witness.
@@ -50,6 +51,7 @@ from masp_tpu_torch.ops.field import FQ, FR
 
 WIDTHS = [1, 3, 32, 1003]
 ADD_WIDTHS = [1, 3, 17, 32, 128, 1003]
+INV_WIDTHS = [1, 2, 3, 32, 1003]
 SPECS = {"Fr": FR, "Fq": FQ}
 GROUPS = {1: (G1, W.encode_g1_points), 2: (G2, W.encode_g2_points)}
 
@@ -119,11 +121,17 @@ def check_mont_mul(dev, name, width, form):
 
 
 def check_mont_inv(dev, name, width):
-    """0 -> 0 among the rows; the plain chain and host ints agree."""
+    """The divstep kernel against its plain version, the Fermat chain over
+    the plain product and host ints; the edge rows 0 (-> 0), mont-1, N - 1,
+    2, N - 2 and the raw 1 first."""
     spec = SPECS[name]
     a = _field_rows(spec, width, 3, dev)
+    if width > 5:
+        a[5] = 0
+        a[5, 0] = 1  # the raw 1: Montgomery value R^-1
     got = _launched("mont_inv_" + name.lower(), lambda: MK.mont_inv(spec, a))
     assert torch.equal(got, MK.mont_inv_plain(spec, a))
+    assert torch.equal(got, MK.fermat_chain(spec, a, lambda x, y: MK.mont_mul_plain(spec, x, y)))
     assert F.decode(spec, got) == [pow(x, spec.modulus - 2, spec.modulus) for x in F.decode(spec, a)]
 
 
@@ -341,7 +349,7 @@ def check_card_proof(dev):
 
 CASES = (
     [(check_mont_mul, (name, w, form)) for name in SPECS for w in WIDTHS for form in mont_mul_forms(w)]
-    + [(check_mont_inv, (name, w)) for name in SPECS for w in WIDTHS]
+    + [(check_mont_inv, (name, w)) for name in SPECS for w in INV_WIDTHS]
     + [(check_point_add, (g, leaf, w)) for g in (1, 2) for leaf in (False, True) for w in ADD_WIDTHS]
     + [(check_point_add, (g, leaf, 128, True)) for g in (1, 2) for leaf in (False, True)]
     + [(check_affine_pre_post, (g, w)) for g in (1, 2) for w in WIDTHS]

@@ -1,6 +1,8 @@
 """The CPU side of the redesigned kernels: the inversion kernel's plain
-chain for Fq and Fr and its routing (kernels/mont_mul.mont_inv: every Fermat
-chain of the proof path is one launch), and the adds' thread schedule on G1 and
+version for Fq and Fr (the divstep GCD, against the JAX package's Fermat
+chain, the port's chain over the plain product and host ints), its constants
+in the CUDA source, and its routing (kernels/mont_mul.mont_inv: every
+inversion of the proof path is one launch), and the adds' thread schedule on G1 and
 G2 (kernels/point_add.ADD_L1 ... ADD_OUT, and LEAF_LIN for the leaf form) on
 host ints and in the CUDA source. Integer arithmetic: every comparison is
 exact."""
@@ -42,14 +44,24 @@ def _one_torch_thread():
     torch.set_num_threads(n)
 
 
-def _inv_rows():
-    """Montgomery rows of 0, 1, q - 1, 2 and seeded values, then the raw
-    rows 1 and q - 1 (Montgomery values R^-1 and (q - 1) R^-1), as int32."""
-    rng = np.random.default_rng(61)
-    vals = [0, 1, Q - 1, 2] + [int(x) * Q // (1 << 62) for x in rng.integers(1, 1 << 62, 8)]
-    mont = F.encode(FQ, vals)
-    raw = F.encode(FQ, [1, Q - 1], mont=False)
+def _inv_vals(n, rows=256):
+    """0, 1 (mont-1 once encoded), n - 1, 2, n - 2, then seeded values below
+    n: rows - 2 in all, room for the two raw rows of ``_inv_tensor``."""
+    rng = np.random.default_rng(61 + n % 1000)
+    words = rng.integers(0, 1 << 62, size=(rows - 7, 7), dtype=np.int64)
+    return [0, 1, n - 1, 2, n - 2] + [int("".join(f"{int(w):016x}" for w in row), 16) % n for row in words]
+
+
+def _inv_tensor(spec, vals):
+    """The Montgomery rows of ``vals``, then the raw rows 1 and N - 1
+    (Montgomery values R^-1 and (N - 1) R^-1), as int32."""
+    mont = F.encode(spec, vals)
+    raw = F.encode(spec, [1, spec.modulus - 1], mont=False)
     return torch.as_tensor(np.concatenate([mont, raw]).astype(np.int32))
+
+
+def _inv_rows():
+    return _inv_tensor(FQ, _inv_vals(Q))
 
 
 @pytest.fixture(scope="module")
@@ -64,48 +76,90 @@ def jax_inverses():
     return np.asarray(out).astype(np.int32)
 
 
-def _host_inverses(rows):
-    return F.encode(FQ, [pow(x, Q - 2, Q) for x in F.decode(FQ, rows)]).astype(np.int32)
+def _host_inverses(rows, spec=FQ):
+    n = spec.modulus
+    return F.encode(spec, [pow(x, n - 2, n) for x in F.decode(spec, rows)]).astype(np.int32)
 
 
-def test_mont_inv_plain_matches_jax_and_host(jax_inverses):
-    a = _inv_rows()
-    got = MK.mont_inv_plain(FQ, a)
+def _check_plain_inverse(spec, a, jax_inv, monkeypatch):
+    """mont_inv_plain (the divstep GCD) against field_jax.mont_inv_small,
+    the Fermat chain over the plain product and host ints, exactly, on its
+    Python-int route (up to MK.INT_ROWS rows) and its int64 tensor route;
+    on either, its check that g = 0 and f = +-1 after the fixed count fires
+    when the count is cut."""
+    assert a.shape[0] <= MK.INT_ROWS
+    got = MK.mont_inv_plain(spec, a)
     assert got.dtype == torch.int32
-    assert np.array_equal(got.numpy(), jax_inverses)
-    assert np.array_equal(got.numpy(), _host_inverses(a))
-    assert F.decode(FQ, got[:1]) == [0]  # zero maps to zero
+    assert np.array_equal(got.numpy(), jax_inv)
+    assert torch.equal(got, MK.fermat_chain(spec, a, lambda x, y: MK.mont_mul_plain(spec, x, y)))
+    assert np.array_equal(got.numpy(), _host_inverses(a, spec))
+    assert F.decode(spec, got[:1]) == [0]  # zero maps to zero
+    int_rows = MK.INT_ROWS
+    monkeypatch.setattr(MK, "INT_ROWS", 0)
+    assert torch.equal(MK.mont_inv_plain(spec, a), got)
+    monkeypatch.setattr(MK.divstep_constants(spec), "batches", MK.divstep_constants(spec).batches // 2)
+    for rows in (0, int_rows):
+        monkeypatch.setattr(MK, "INT_ROWS", rows)
+        with pytest.raises(AssertionError, match="fixed divstep count"):
+            MK.mont_inv_plain(spec, a)
+    return got
+
+
+def _divsteps_by_definition(delta, f, g, steps=MK.DIVSTEPS):
+    """Bernstein and Yang's divstep on whole ints: where delta > 0 and g is
+    odd, (delta, f, g) <- (1 - delta, g, (g - f) / 2), else (1 + delta, f,
+    (g + (g mod 2) f) / 2)."""
+    for _ in range(steps):
+        if delta > 0 and g & 1:
+            delta, f, g = 1 - delta, g, (g - f) // 2
+        else:
+            delta, f, g = 1 + delta, f, (g + (g & 1) * f) // 2
+    return delta, f, g
+
+
+def test_mont_inv_plain_matches_jax_and_host(jax_inverses, monkeypatch):
+    """The Fq inversion, and the plain version's batch of divsteps (int64
+    tensors and Python ints) against the paper's definition: from the low
+    30 bits of f and g alone, eta = -delta after 30 steps and the matrix
+    that maps the whole (f, g) to 2^30 times the whole result (the step
+    whose count the bound is proved for)."""
+    _check_plain_inverse(FQ, _inv_rows(), jax_inverses, monkeypatch)
+    rng = random.Random(30)
+    cases = [(rng.randrange(-60, 61), rng.randrange(Q) | 1, rng.randrange(-Q, Q)) for _ in range(64)]
+    cases += [(1, Q, 0), (1, Q, 1), (1, 1, Q - 1)]
+    low = [[f % (1 << 30) for _, f, _ in cases], [g % (1 << 30) for _, _, g in cases]]
+    eta, t = MK._divsteps(torch.tensor([-d for d, _, _ in cases]), *(torch.tensor(x) for x in low))
+    for (d, f, g), e, ((u, v), (q, r)), f0, g0 in zip(cases, eta.tolist(), t.tolist(), *low):
+        d30, f30, g30 = _divsteps_by_definition(d, f, g)
+        assert (e, u * f + v * g, q * f + r * g) == (-d30, f30 << 30, g30 << 30)
+        assert MK._divsteps_int(-d, f0, g0) == (e, (u, v, q, r))
 
 
 def test_routed_inversions_match_jax_and_host(jax_inverses):
-    """F.mont_inv_small runs the inversion kernel's wrapper (the plain chain
+    """F.mont_inv_small runs the inversion kernel's wrapper (the plain version
     on a CPU tensor, uncounted); the product tree's default root goes the
     same way."""
     a = _inv_rows()
     before = dict(LAUNCHES)
     assert np.array_equal(F.mont_inv_small(FQ, a).numpy(), jax_inverses)
-    assert np.array_equal(F.mont_inv_small(FQ, a.reshape(2, 7, FQ.L)).reshape(-1, FQ.L).numpy(), jax_inverses)
+    assert np.array_equal(F.mont_inv_small(FQ, a.reshape(2, -1, FQ.L)).reshape(-1, FQ.L).numpy(), jax_inverses)
     d = a[1:9]  # eight non-zero rows
     assert np.array_equal(F.tree_batch_inv(FQ, d).numpy(), _host_inverses(d))
     assert np.array_equal(F.batch_mont_inv(FQ, a).numpy(), jax_inverses)
     assert LAUNCHES == before
 
 
-def test_fr_inversion_plain_matches_jax_and_host():
-    """The Fr instance of the inversion chain (64 nibbles of r - 2, 329
-    products): the plain chain and the routed F.mont_inv_small against
-    field_jax.mont_inv_small over Fr and host ints, 0 -> 0 included."""
-    r = FR.modulus
-    rng = np.random.default_rng(64)
-    vals = [0, 1, r - 1, 2, r - 2] + [int(x) * r // (1 << 62) for x in rng.integers(1, 1 << 62, 6)]
-    a = torch.as_tensor(F.encode(FR, vals).astype(np.int32))
+def test_fr_inversion_plain_matches_jax_and_host(monkeypatch):
+    """The Fr instance of the inversion (25 batches of divsteps): the plain
+    version against field_jax.mont_inv_small over Fr (329 products), the
+    plain Fermat chain and host ints, and the routed F.mont_inv_small, 0 ->
+    0 included."""
+    a = _inv_tensor(FR, _inv_vals(FR.modulus))
     rows = jnp.asarray(a.numpy().astype(np.uint32))
     lowered = jax.jit(lambda x: FJ.mont_inv_small(FJ.FR, x)).lower(rows)
     jax_inv = np.asarray(lowered.compile(compiler_options={"xla_backend_optimization_level": 0})(rows))
-    got = MK.mont_inv_plain(FR, a)
-    assert len(FR.inv_exp_nibbles) == 64
-    assert np.array_equal(got.numpy(), jax_inv.astype(np.int32))
-    assert F.decode(FR, got) == [pow(x, r - 2, r) for x in vals]
+    got = _check_plain_inverse(FR, a, jax_inv.astype(np.int32), monkeypatch)
+    monkeypatch.undo()
     before = dict(LAUNCHES)
     assert torch.equal(F.mont_inv_small(FR, a), got)
     assert LAUNCHES == before
@@ -264,11 +318,35 @@ def test_g2_schedule_matches_cuda_source():
     assert "point_add_kernel" not in src
 
 
-def test_inverse_nibbles_match_cuda_source():
+def _cuda_words(src, name):
+    body = re.search(name + r"\[(\d+)\] = \{(.*?)\};", src, re.S)
+    return int(body.group(1)), [int(x.rstrip("u"), 0) for x in re.findall(r"0x[0-9a-f]+u?|\d+", body.group(2))]
+
+
+def test_inverse_constants_match_cuda_source():
+    """The divstep inversion's constants in csrc/mont_mul.cu (N in signed
+    30-bit limbs, N^-1 mod 2^30, R^3 mod N, the batch count) equal
+    kernels/mont_mul.divstep_constants and the values they stand for; the
+    Fermat chain's nibble tables and shared-memory table are gone."""
     src = (CSRC / "mont_mul.cu").read_text()
-    assert _cuda_table(src, "FQ_INV_NIBBLES") == FQ.inv_exp_nibbles
-    assert len(FQ.inv_exp_nibbles) == 96
-    assert _cuda_table(src, "FR_INV_NIBBLES") == FR.inv_exp_nibbles
+    inv = src[src.index("--- inversion"):]
+    assert "__shared__" not in inv and "NIBBLES" not in src
+    for spec, tag in ((FQ, "FQ"), (FR, "FR")):
+        c = MK.divstep_constants(spec)
+        n, bits = spec.modulus, spec.modulus.bit_length()
+        k, n30 = _cuda_words(src, tag + "_N30")
+        assert k == c.limbs == len(n30) and n30 == c.n30
+        assert sum(x << (30 * i) for i, x in enumerate(n30)) == n and all(0 <= x < 1 << 30 for x in n30)
+        assert 30 * c.limbs >= bits + 2  # |f|, |g| <= N and d, e in (-2N, N), with a sign
+        w, r3 = _cuda_words(src, tag + "_R3")
+        assert w == spec.L // 2 and sum(x << (32 * i) for i, x in enumerate(r3)) == c.r3 == pow(spec.R, 3, n)
+        struct = re.search(r"struct Inv<" + spec.name + r"> \{(.*?)\};", inv, re.S).group(1)
+        got = {m.group(1): int(m.group(2).rstrip("u"), 0)
+               for m in re.finditer(r"static constexpr \w+ (\w+) = (0x[0-9a-f]+u?|\d+);", struct)}
+        assert got == {"K": c.limbs, "BATCHES": c.batches, "NINV30": c.ninv30}
+        assert c.ninv30 * n % (1 << 30) == 1
+        assert c.steps == (49 * bits + 80) // 17 and 30 * (c.batches - 1) < c.steps <= 30 * c.batches
+    assert (MK.divstep_constants(FQ).batches, MK.divstep_constants(FR).batches) == (37, 25)
 
 
 def test_redesigned_wrappers_check_inputs():
