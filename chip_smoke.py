@@ -86,6 +86,7 @@ INT8_MAC_PER_S = 989.5e12
 # v (2 each), the swap mask (1), delta (3) and the three shifts
 DIVSTEP_OPS = 28
 L2_BYTES = 50 * 2**20  # the H100 SXM's L2 cache
+PT_BYTES = 48 * 4  # a packed Jubjub point row
 
 REPLACES = {
     "mont_mul_fr": "masp_tpu/kernels/field_kernels.py:350",
@@ -183,6 +184,12 @@ FQ_IMAD = 2 * (2 * 144 + 12)
 JUBJUB_ADD_PAIRS = 1 << 16
 FR_SQRT_ROWS = 1 << 12
 FOLD_CHUNKS, FOLD_HASHES = 172, 1 << 12
+# the fold's check widths (the tree's device levels run from 32,768 down to
+# 64 hashes) and the widths it is timed at
+FOLD_WIDTHS = (1, 3, 32, 64, 1003, 1024, 4096, 32768)
+FOLD_TIMED = (64, 1024, 4096, 32768)
+# the build of jubjub.cu whose probe kernels hold one Fr product each
+JUBJUB_PROBE = ("MASP_JUBJUB_PROBE",)
 JUBJUB_TREE_LEAVES = 1 << 16
 JUBJUB_SIGS = 256
 JUBJUB_MSM_POINTS = 1 << 10
@@ -1627,13 +1634,17 @@ def _sqrt_products() -> int:
     return len(bits) + sum(bits) + 3 + inner + 4 * (len(steps) - inner) + 1
 
 
-def jubjub_kernel_phase(dev, rng, card: str) -> dict:
+def jubjub_kernel_phase(dev, rng, card: str):
     """The three Jubjub kernels bit for bit against their plain versions and
     timed in a CUDA graph from HBM: jubjub_add at JUBJUB_ADD_PAIRS pairs
-    (projective operands, the edge lanes first, contiguous and strided) and
-    on the JAX test's batch of every case (also against the host curve);
+    (projective operands, the edge lanes first, contiguous, strided and
+    unaligned) and on the JAX test's batch of every case (also against the
+    host curve);
     fr_sqrt at FR_SQRT_ROWS rows (0, 1, N - 1 among them); pedersen_fold at
-    FOLD_CHUNKS chunks and FOLD_HASHES hashes of seeded digits."""
+    FOLD_CHUNKS chunks and each of FOLD_WIDTHS hashes of seeded digits,
+    timed at FOLD_TIMED (FOLD_HASHES is its entry's "ms"). Then the SASS
+    counts (jubjub_sass_report). Returns the entries and the add's wide
+    operands."""
     import torch
 
     from masp_tpu_torch.kernels import jubjub as KJ
@@ -1644,13 +1655,20 @@ def jubjub_kernel_phase(dev, rng, card: str) -> dict:
     from masp_tpu_torch.ops.field import FR
 
     out = {}
-    prod_imad = 2 * (2 * 64 + 8)  # one Fr product: 2 (2 W^2 + W) IMADs, W = 8
+    prod_imad = 2 * (2 * 64 + 8)  # one fe_mul<Fr> (fr_sqrt): 2 (2 W^2 + W) multiply-adds, W = 8
+    # one fr_mul (the add and the fold): a b's 2 W^2 and m N's 2 W (W - 1),
+    # since m = -t0 costs no product and m N[0] = m is an add
+    fr_mul_imad = 2 * (2 * 64 - 8)
 
     # the add: the all-cases batch, then the wide batch
     ps, qs = _jubjub_cases()
     P8, Q8 = _jubjub_rows(ps, dev), _jubjub_rows(qs, dev)
     got = KJ.jubjub_add(P8, Q8)
     _check_equal("jubjub_add (all cases)", got, KJ.jubjub_add_plain(P8, Q8))
+    pairs8 = torch.cat([P8, Q8], dim=1)
+    _check_equal("jubjub_add (all cases, strided)", KJ.jubjub_add(pairs8[:, :48], pairs8[:, 48:]), got)
+    u8 = torch.cat([P8[:, :1], P8, Q8], dim=1)  # rows of 97 words: P8 one word in, Q8 after it
+    _check_equal("jubjub_add (all cases, unaligned)", KJ.jubjub_add(u8[:, 1:49], u8[:, 49:]), got)
     if J.decode_points(*(got[:, 16 * i : 16 * (i + 1)] for i in range(3))) != [p + q for p, q in zip(ps, qs)]:
         raise AssertionError("jubjub_add (all cases): the sums differ from the host curve's")
     n = JUBJUB_ADD_PAIRS
@@ -1663,19 +1681,26 @@ def jubjub_kernel_phase(dev, rng, card: str) -> dict:
     P = torch.cat([MK.mont_mul_plain(FR, rows[:n, 16 * i : 16 * (i + 1)], lam) for i in range(3)], dim=1)
     Q = rows[1:].contiguous()
     P[: P8.shape[0]], Q[: Q8.shape[0]] = P8, Q8
-    want = KJ.jubjub_add_plain(P, Q)
-    err = _check_equal("jubjub_add", KJ.jubjub_add(P, Q), want)
+    want_add = KJ.jubjub_add_plain(P, Q)
+    err = _check_equal("jubjub_add", KJ.jubjub_add(P, Q), want_add)
     pairs = torch.cat([P, Q], dim=1)
-    _check_equal("jubjub_add (strided)", KJ.jubjub_add(pairs[:, :48], pairs[:, 48:]), want)
+    _check_equal("jubjub_add (strided)", KJ.jubjub_add(pairs[:, :48], pairs[:, 48:]), want_add)
+    # rows of 49 words, one word in: neither base nor stride 16-byte aligned
+    Pu, Qu = (torch.cat([x[:, :1], x], dim=1)[:, 1:] for x in (P, Q))
+    _check_equal("jubjub_add (unaligned)", KJ.jubjub_add(Pu, Qu), want_add)
     for width in (1, 3, 17, 32, 128, 1003):
-        _check_equal(f"jubjub_add (width {width})", KJ.jubjub_add(P[:width], Q[:width]), want[:width])
-    nbytes = 3 * n * 48 * 4
+        _check_equal(f"jubjub_add (width {width})", KJ.jubjub_add(P[:width], Q[:width]), want_add[:width])
+        _check_equal(f"jubjub_add (width {width}, strided)", KJ.jubjub_add(pairs[:width, :48], pairs[:width, 48:]),
+                     want_add[:width])
+        _check_equal(f"jubjub_add (width {width}, unaligned)", KJ.jubjub_add(Pu[:width], Qu[:width]),
+                     want_add[:width])
+    nbytes = 3 * n * PT_BYTES
     out["jubjub_add"] = {
         "n": n, "max_abs_err": err, "ms": _kernel_ms(KJ.jubjub_add, (P, Q), nbytes),
         "eager_ms": _median_ms(lambda: KJ.jubjub_add(P, Q), 10),
         "plain_ms": _median_ms(lambda: KJ.jubjub_add_plain(P, Q), 3),
-        "ops_ms": _imad_ms(n * 12 * prod_imad), "bytes": nbytes,
-        "all_cases_ms": _kernel_ms(KJ.jubjub_add, (P8, Q8), 3 * 8 * 48 * 4, launches=20, from_hbm=False),
+        "ops_ms": _imad_ms(n * 12 * fr_mul_imad), "ops_ms_fe_mul": _imad_ms(n * 12 * prod_imad), "bytes": nbytes,
+        "all_cases_ms": _kernel_ms(KJ.jubjub_add, (P8, Q8), 3 * 8 * PT_BYTES, launches=20, from_hbm=False),
     }
 
     # the square root
@@ -1704,28 +1729,51 @@ def jubjub_kernel_phase(dev, rng, card: str) -> dict:
         "products": _sqrt_products(),
     }
 
-    # the fold
+    # the fold: every width against the plain version of the widest, then
+    # timed at the tree's widths; the table stays in L2 as on the path (each
+    # level folds with the same table), the digits come from HBM from 4,096
+    # hashes up
     C, n = FOLD_CHUNKS, FOLD_HASHES
     t0 = time.perf_counter()
     table = PED._chunk_tables(C, dev)
+    KJ.fold_table(table)
     torch.cuda.synchronize()
     table_s = time.perf_counter() - t0
-    idx = torch.as_tensor(np.random.default_rng(rng.randrange(1 << 30)).integers(0, 9, (C, n), dtype=np.int32),
-                          device=dev)
-    want = KJ.pedersen_fold_plain(table, idx)
-    err = _check_equal("pedersen_fold", KJ.pedersen_fold(table, idx), want)
-    for width in (1, 3, 32, 1003):
-        sub = idx[:, :width].contiguous()
-        _check_equal(f"pedersen_fold (width {width})", KJ.pedersen_fold(table, sub), want[:width])
-    nbytes = C * n * 4 + C * 9 * 48 * 4 + n * 48 * 4
+    wide = max(FOLD_WIDTHS)
+    idx_all = torch.as_tensor(
+        np.random.default_rng(rng.randrange(1 << 30)).integers(0, 9, (C, wide), dtype=np.int32), device=dev)
+    t0 = time.perf_counter()
+    want = KJ.pedersen_fold_plain(table, idx_all)
+    torch.cuda.synchronize()
+    plain_wide_s = time.perf_counter() - t0
+    err = 0.0
+    for width in FOLD_WIDTHS:
+        got = KJ.pedersen_fold(table, idx_all[:, :width].contiguous())
+        err = max(err, _check_equal(f"pedersen_fold (width {width})", got, want[:width]))
+
+    def fold_ms(width):
+        sub = idx_all[:, :width].contiguous()
+        return _kernel_ms(lambda i: KJ.pedersen_fold(table, i), (sub,), C * width * 4 + width * PT_BYTES,
+                          from_hbm=width >= 4096)
+
+    widths_ms = {w: fold_ms(w) for w in FOLD_TIMED}
+    idx = idx_all[:, :n].contiguous()
     out["pedersen_fold"] = {
-        "n": n, "chunks": C, "max_abs_err": err, "ms": _kernel_ms(KJ.pedersen_fold, (table, idx), nbytes),
+        "n": n, "chunks": C, "max_abs_err": err, "ms": widths_ms[n], "widths_ms": widths_ms,
         "eager_ms": _median_ms(lambda: KJ.pedersen_fold(table, idx), 10),
         "plain_ms": _median_ms(lambda: KJ.pedersen_fold_plain(table, idx), 3),
-        "ops_ms": _imad_ms(C * n * 12 * prod_imad), "bytes": nbytes,
-        "table_s": table_s,
+        # the mixed add's 11 fr_mul a step; the parent's 12 fe_mul beside it
+        "ops_ms": _imad_ms(C * n * 11 * fr_mul_imad), "ops_ms_fe_mul": _imad_ms(C * n * 12 * prod_imad),
+        "bytes": C * n * 4 + C * 9 * PT_BYTES + n * PT_BYTES, "table_s": table_s,
     }
-    log(f"kernel pedersen_fold: the {C}-chunk table built on the host and copied in {table_s:.3f} s")
+    log(f"kernel pedersen_fold: the {C}-chunk table built on the host and copied in {table_s:.3f} s (with its "
+        f"fold_table layout); plain version at {wide} hashes in {plain_wide_s:.1f} s; bit-identical to it at "
+        f"widths {list(FOLD_WIDTHS)} (tolerance: exact)")
+    log(f"kernel pedersen_fold by width (hashes: ms per launch in a CUDA graph, table in L2, digits from HBM from "
+        f"4096 up): {json.dumps({w: round(t, 4) for w, t in widths_ms.items()})}; bound at {n} hashes "
+        f"{out['pedersen_fold']['ops_ms']:.6f} ms (11 fr_mul a step), {out['pedersen_fold']['ops_ms_fe_mul']:.6f} "
+        f"ms as 12 fe_mul; jubjub_add's at {out['jubjub_add']['n']} pairs {out['jubjub_add']['ops_ms']:.6f} ms "
+        f"(12 fr_mul), {out['jubjub_add']['ops_ms_fe_mul']:.6f} ms as 12 fe_mul on {card}")
     for name, r in out.items():
         bytes_ms, ops_ms = _set_bound(r)
         log(f"kernel {name}: n={r['n']} bit-identical to plain (tolerance: exact; max_abs_err {r['max_abs_err']}); "
@@ -1734,7 +1782,63 @@ def jubjub_kernel_phase(dev, rng, card: str) -> dict:
             f"{bytes_ms:.6f} ms, operations {ops_ms:.6f} ms) on {card}")
     log(f"kernel jubjub_add on the all-cases batch (8 pairs): {out['jubjub_add']['all_cases_ms']:.4f} ms per "
         f"launch in a CUDA graph, inputs in L2 on {card}")
+    jubjub_sass_report()
+    return out, (P, Q)
+
+
+def jubjub_sass_report() -> dict:
+    """Static SASS instructions (cuobjdump -sass) of jubjub_add_kernel and
+    pedersen_fold_kernel in the built library, and of the probe kernels of
+    the JUBJUB_PROBE build, each one Fr product between the same 16 loads
+    and 8 stores: probe_fr_mul (the carry-chain product of the two kernels)
+    and probe_fe_mul (field.cuh's fe_mul<Fr>, which fr_sqrt_kernel keeps)."""
+    from collections import Counter
+    from pathlib import Path
+
+    from masp_tpu_torch.kernels import build
+
+    tool = Path(build.nvcc_path()).parent / "cuobjdump"
+    if not tool.exists():
+        log(f"  sass: no cuobjdump beside nvcc ({tool}): not measured")
+        return {}
+    out = {}
+    for defines, parts in (((), ("jubjub_add_kernel", "pedersen_fold_kernel")),
+                           (JUBJUB_PROBE, ("probe_fr_mul", "probe_fe_mul"))):
+        build.library("jubjub", defines)
+        text = subprocess.run([str(tool), "-sass", str(build.lib_path("jubjub", defines))], capture_output=True,
+                              text=True, timeout=120, check=True).stdout
+        funcs = _sass_functions(text)
+        for part in parts:
+            found = [ins for f, ins in funcs.items() if part in f]
+            if len(found) != 1:
+                raise AssertionError(f"sass: {len(found)} functions of jubjub.cu match {part}")
+            c = Counter(op for _, op, _ in found[0])
+            out[part] = {"instructions": sum(c.values()), "imad": c["IMAD"], "top": dict(c.most_common(8))}
+            log(f"  sass {part}: {out[part]['instructions']} instructions (static), IMAD family {c['IMAD']}; most "
+                f"frequent {json.dumps(out[part]['top'])}")
+    log(f"  sass Fr product: the carry-chain fr_mul's probe {out['probe_fr_mul']['instructions']} instructions "
+        f"against fe_mul<Fr>'s {out['probe_fe_mul']['instructions']} (each with the same loads and stores)")
     return out
+
+
+def jubjub_add_path_log(widths, P, Q, card: str) -> None:
+    """jubjub_add's launches on the Jubjub path by width, and their kernel
+    time summed: the kernel timed in a CUDA graph at each width the path
+    launched it at (contiguous rows of P and Q, inputs in L2, as a bucket
+    chain finds them), times its launches there."""
+    from collections import Counter
+
+    from masp_tpu_torch.kernels import jubjub as KJ
+
+    counts = Counter(widths)
+    reps = -(-max(counts) // P.shape[0])
+    P, Q = (x.repeat(reps, 1) if reps > 1 else x for x in (P, Q))
+    ms = {w: _kernel_ms(KJ.jubjub_add, (P[:w], Q[:w]), 3 * w * PT_BYTES, launches=20, from_hbm=False)
+          for w in sorted(counts)}
+    log(f"kernel jubjub_add on the Jubjub path: {len(widths)} launches, {sum(widths)} pairs (launches by width "
+        f"{json.dumps(dict(sorted(counts.items())))}); {sum(ms[w] * k for w, k in counts.items()):.4f} ms of kernel "
+        f"time summed (in a CUDA graph, inputs in L2; ms per launch by width: "
+        f"{json.dumps({w: round(t, 4) for w, t in ms.items()})}) on {card}")
 
 
 def _tree_levels(n_leaves: int):
@@ -1775,7 +1879,9 @@ def jubjub_phase(dev, rng, card: str) -> dict:
     from masp_tpu_torch.ops import jubjub as J
     from masp_tpu_torch.ops import pedersen as PED
 
-    kern = jubjub_kernel_phase(dev, rng, card)
+    from masp_tpu_torch.kernels import jubjub as KJ
+
+    kern, (add_p, add_q) = jubjub_kernel_phase(dev, rng, card)
     if "MASP_MERKLE_DEVICE_MIN" in os.environ:
         raise AssertionError("[jubjub] MASP_MERKLE_DEVICE_MIN is set: the tree must take the default route")
     q = JubjubFr.META.modulus
@@ -1826,38 +1932,53 @@ def jubjub_phase(dev, rng, card: str) -> dict:
         levels.append((depth, len(pairs), time.perf_counter() - t0))
         return res
 
+    # jubjub_add's widths on the path, through a recorder (the launches still
+    # run and count)
+    add_widths, real_add = [], KJ.jubjub_add
+
+    def record(p, q):
+        add_widths.append(p.shape[0])
+        return real_add(p, q)
+
     reset_launches()
-    # the 256-leaf tree first: its two device levels also take the first
-    # use of each library and table out of the timed tree
-    t0 = time.perf_counter()
-    small = leaves[:256]
-    dev_tree = FrozenCommitmentTree.new(small)
-    times = {"tree_256": time.perf_counter() - t0}
-    PED.batch_merkle_hash = timed
+    KJ.jubjub_add = record
     try:
+        # the 256-leaf tree first: its two device levels also take the first
+        # use of each library and table out of the timed tree
         t0 = time.perf_counter()
-        tree = FrozenCommitmentTree.new(leaves)
-        times["tree"] = time.perf_counter() - t0
+        small = leaves[:256]
+        dev_tree = FrozenCommitmentTree.new(small)
+        times = {"tree_256": time.perf_counter() - t0}
+        PED.batch_merkle_hash = timed
+        try:
+            t0 = time.perf_counter()
+            tree = FrozenCommitmentTree.new(leaves)
+            times["tree"] = time.perf_counter() - t0
+        finally:
+            PED.batch_merkle_hash = twin
+        t0 = time.perf_counter()
+        sig_ok = RJ.batch_verify(XorShiftRng.from_seed(BATCH_SEED), entries, p_g, use_device=True)
+        times["sigs"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        sig_bad = RJ.batch_verify(XorShiftRng.from_seed(BATCH_SEED), bad, p_g, use_device=True)
+        times["sigs_altered"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        msm_sum = J.msm(msm_points, scalars)
+        times["msm"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        decoded = J.batch_from_bytes(items)
+        times["decompress"] = time.perf_counter() - t0
+        torch.cuda.synchronize()
     finally:
-        PED.batch_merkle_hash = twin
-    t0 = time.perf_counter()
-    sig_ok = RJ.batch_verify(XorShiftRng.from_seed(BATCH_SEED), entries, p_g, use_device=True)
-    times["sigs"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    sig_bad = RJ.batch_verify(XorShiftRng.from_seed(BATCH_SEED), bad, p_g, use_device=True)
-    times["sigs_altered"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    msm_sum = J.msm(msm_points, scalars)
-    times["msm"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    decoded = J.batch_from_bytes(items)
-    times["decompress"] = time.perf_counter() - t0
-    torch.cuda.synchronize()
+        KJ.jubjub_add = real_add
     launches = dict(LAUNCHES)
     log(f"[jubjub] launches: {json.dumps({k: v for k, v in launches.items() if v})}")
     for name in JUBJUB_KERNELS:
         if launches[name] <= 0:
             raise AssertionError(f"[jubjub] kernel {name} was not launched on the Jubjub path")
+    if len(add_widths) != launches["jubjub_add"]:
+        raise AssertionError(f"[jubjub] {len(add_widths)} adds recorded, {launches['jubjub_add']} launched")
+    jubjub_add_path_log(add_widths, add_p, add_q, card)
 
     # the tree against the host
     want_levels = [(d, JUBJUB_TREE_LEAVES >> (d + 1)) for d in range(len(levels))]
@@ -2071,7 +2192,7 @@ def main(argv) -> int:
     log(f"card: {card}")
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, python {sys.version.split()[0]}")
     t0 = time.perf_counter()
-    variants = [("point_add", (f"MASP_G1_ADD_BLOCK={b}",)) for b in G1_BLOCKS]
+    variants = [("point_add", (f"MASP_G1_ADD_BLOCK={b}",)) for b in G1_BLOCKS] + [("jubjub", JUBJUB_PROBE)]
     build.build_all(variants)
     log(f"kernel build: {time.perf_counter() - t0:.1f} s (one nvcc per source and variant, in parallel)")
     for src, defines in [(s, ()) for s in build.SOURCES] + variants:
@@ -2173,7 +2294,10 @@ def main(argv) -> int:
     # bound per operand form), "narrow_ms" (rows: ms, inputs in L2),
     # "per_proof" (the main path's launches timed at their widths and forms,
     # summed) and "sass"; "all_cases_ms" is jubjub_add's ms on the 8 pairs of
-    # every addition case
+    # every addition case; "widths_ms" pedersen_fold's ms by hashes;
+    # "ops_ms_fe_mul" the add's and the fold's operation bound as the parent
+    # counted it, 12 products of fe_mul's multiply-adds an add or a step
+    # (they run 12 or 11 of fr_mul's fewer)
     line = {"kernels": [{
         "name": name, "route": "cuda", "source": SOURCE[name], "replaces": REPLACES[name],
         "launches": k["launches"] if name in TOOL_KERNELS else path_launches(name),
@@ -2185,7 +2309,8 @@ def main(argv) -> int:
         "eager_ms": k["eager_ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
         "bound_by": k["bound_by"], "library_ms": k.get("library_ms"), "bytes": k["bytes"],
         "ops_ms": k["ops_ms"], "ptxas": ptxas[name], "widest": k.get("widest"),
-        **{key: k[key] for key in ("forms", "narrow_ms", "per_proof", "all_cases_ms") if key in k},
+        **{key: k[key] for key in ("forms", "narrow_ms", "per_proof", "all_cases_ms", "widths_ms", "ops_ms_fe_mul")
+           if key in k},
         **({"sass": sass[name]} if name in sass else {})}
         for name, k in {**kern, **tools}.items()]}
     print(json.dumps(line))

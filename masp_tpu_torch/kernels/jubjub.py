@@ -15,6 +15,12 @@ field element, so the kernels, the plain versions and the JAX programs give
 the same limbs. The plain versions run the same formulas over
 ``mont_mul_plain``: on CPU tensors, and on the card as the kernels'
 reference.
+
+The add and the fold kernels give each pair (hash) a group of threads that
+share the formula's products in layers: the schedules ``ADD_*`` (the
+complete add) and ``FOLD_*`` (the fold's step, the mixed add of a table
+entry with Z = 1) below, which the CUDA source holds too. The fold kernel
+reads its table in its own layout, ``fold_table``.
 """
 
 from __future__ import annotations
@@ -84,6 +90,83 @@ def constant(name: str, device) -> torch.Tensor:
         return torch.as_tensor(np.asarray(arr).astype(np.int32), device=device)
 
     return device_const(("jubjub", name, torch.device(device)), build)
+
+
+# --- the add and the fold kernels' schedules --------------------------------------
+#
+# csrc/jubjub.cu holds the same tables. A formula is a list of layers over
+# slots, elements of Fr: slots below ADD_NS (FOLD_NS) lie in the pair's
+# (hash's) own area, the slots from there on are read-only elements outside
+# it. A product layer's rows are (out, a, b): out = a b. A linear layer's
+# rows are (out, x, s, y, z): out = x + s (y + z) with s = +-1, z = NONE for
+# none. The rows of a layer are independent; thread t of a group takes rows
+# t, t + GROUP, ... of each layer.
+NONE = 31
+
+# The complete add, add-2008-bbjlp with a = -1: slots X1 0, Y1 1, Z1 2, X2 3,
+# Y2 4, Z2 5, 6-11 free, 12 the curve's d; X3 | Y3 | Z3 end in ADD_OUT,
+# ADD_OUT + 1, ADD_OUT + 2. 12 products, 4 deep.
+ADD_NS = 12
+ADD_LIN0 = ((6, 0, 1, 1, NONE), (7, 3, 1, 4, NONE))  # X1 + Y1, X2 + Y2
+ADD_L1 = ((8, 2, 5), (9, 0, 3), (10, 1, 4), (11, 6, 7))  # A = Z1 Z2, C = X1 X2, D = Y1 Y2, H' = (X1 + Y1)(X2 + Y2)
+ADD_LIN1 = ((0, 9, 1, 10, NONE), (1, 11, -1, 9, 10))  # S = C + D, H = H' - (C + D)
+ADD_L2 = ((2, 8, 8), (3, 9, 10), (4, 8, 1), (5, 8, 0))  # B = A^2, C D, A H, A S
+ADD_L3 = ((6, 12, 3),)  # E = d (C D)
+ADD_LIN2 = ((7, 2, -1, 6, NONE), (8, 2, 1, 6, NONE))  # F = B - E, G = B + E
+ADD_L4 = ((9, 4, 7), (10, 5, 8), (11, 7, 8))  # X3 = (A H) F, Y3 = (A S) G, Z3 = F G
+ADD_OUT = 9
+ADD_LAYERS = (("lin", ADD_LIN0), ("mul", ADD_L1), ("lin", ADD_LIN1), ("mul", ADD_L2), ("mul", ADD_L3),
+              ("lin", ADD_LIN2), ("mul", ADD_L4))
+
+# The fold's step, the mixed add of an entry with Z2 = 1: slots X1 0, Y1 1,
+# Z1 2 (the accumulator, in place), 3-12 free; the entry's X2 13, Y2 14,
+# X2 + Y2 15 and d X2 Y2 16 (FOLD_ENTRY). A = Z1 Z2 = Z1 and E = (X1 Y1)(d X2
+# Y2): 11 products, 3 deep.
+FOLD_NS = 13
+FOLD_LIN0 = ((3, 0, 1, 1, NONE),)  # X1 + Y1
+FOLD_L1 = ((4, 0, 13), (5, 1, 14), (6, 3, 15), (7, 0, 1))  # C, D, H' = (X1 + Y1)(X2 + Y2), P = X1 Y1
+FOLD_LIN1 = ((3, 4, 1, 5, NONE), (8, 6, -1, 4, 5))  # S = C + D, H = H' - (C + D)
+FOLD_L2 = ((9, 2, 2), (10, 7, 16), (11, 2, 8), (12, 2, 3))  # B = Z1^2, E = P (d X2 Y2), Z1 H, Z1 S
+FOLD_LIN2 = ((4, 9, -1, 10, NONE), (5, 9, 1, 10, NONE))  # F = B - E, G = B + E
+FOLD_L3 = ((0, 11, 4), (1, 12, 5), (2, 4, 5))  # X3 = (Z1 H) F, Y3 = (Z1 S) G, Z3 = F G
+FOLD_LAYERS = (("lin", FOLD_LIN0), ("mul", FOLD_L1), ("lin", FOLD_LIN1), ("mul", FOLD_L2), ("lin", FOLD_LIN2),
+               ("mul", FOLD_L3))
+FOLD_ENTRY = 4  # elements of a fold-table entry: X2, Y2, X2 + Y2, d X2 Y2
+
+
+def _words(limbs: np.ndarray) -> np.ndarray:
+    """(n, 16) 16-bit limbs -> (n, 8) packed 32-bit words as int32."""
+    limbs = limbs.astype(np.uint32)
+    return (limbs[:, 0::2] | (limbs[:, 1::2] << 16)).view(np.int32)
+
+
+def fold_table(table):
+    """The fold kernel's layout of a (C, 9, 48) table whose entries all have
+    Z = 1: (C, 9, 32) int32, per entry the packed 32-bit words of X2, Y2,
+    X2 + Y2 and d X2 Y2 (Montgomery form). Made on the host once per table
+    and kept on the table tensor (made again after an in-place write);
+    raises where an entry's Z is not 1, or while a CUDA graph is being
+    captured (make it before)."""
+    kept = getattr(table, "_masp_fold_table", None)
+    if kept is not None and kept[0] == table._version:
+        return kept[1]
+    if table.is_cuda and torch.cuda.is_current_stream_capturing():
+        raise RuntimeError("fold_table: make the fold table before capturing a CUDA graph")
+    rows = table.reshape(-1, PT).cpu().numpy()
+    L = FR.L
+    if not (rows[:, 2 * L :] == F.encode(FR, [1])[0]).all():
+        raise ValueError("fold_table: the fold kernel adds entries with Z = 1 only")
+    x = F.decode(FR, rows[:, :L], mont=False)
+    y = F.decode(FR, rows[:, L : 2 * L], mont=False)
+    d = F.decode(FR, D_MONT[None], mont=False)[0]
+    rinv2 = pow(FR.R_mod, -2, _R)
+    s = [(a + b) % _R for a, b in zip(x, y)]
+    t = [d * a % _R * b % _R * rinv2 % _R for a, b in zip(x, y)]
+    words = np.concatenate([_words(rows[:, :L]), _words(rows[:, L : 2 * L]),
+                            _words(F.encode(FR, s, mont=False)), _words(F.encode(FR, t, mont=False))], axis=1)
+    out = torch.as_tensor(words.reshape(table.shape[0], 9, 8 * FOLD_ENTRY), device=table.device)
+    table._masp_fold_table = (table._version, out)
+    return out
 
 
 # --- plain versions -------------------------------------------------------------
@@ -195,7 +278,7 @@ def _c_fn(name: str):
     fn.argtypes = {
         "jubjub_add": [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_longlong,
                        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p],
-        "pedersen_fold": [ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 2 + [ctypes.c_void_p] * 2,
+        "pedersen_fold": [ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 2 + [ctypes.c_void_p],
         "fr_sqrt": [ctypes.c_void_p] * 3 + [ctypes.c_longlong] + [ctypes.c_void_p] * 2
         + [ctypes.c_int] * 2 + [ctypes.c_void_p],
     }[name]
@@ -247,19 +330,19 @@ def pedersen_fold(table, idx):
     """(N, 48) rows: for each n the identity plus table[c, idx[c, n]] over
     c = 0 .. C-1 in that order; table (C, 9, 48) int32 rows, idx (C, N)
     int32 in 0 .. 8 (a digit plus 4). A CPU tensor runs the plain version; a
-    CUDA tensor launches the kernel or raises."""
+    CUDA tensor launches the kernel or raises. The kernel adds entries with
+    Z = 1 only, the table's affine encoding (``fold_table`` checks it)."""
     if table.dtype != torch.int32 or table.dim() != 3 or table.shape[1:] != (9, PT):
         raise ValueError(f"pedersen_fold takes a (C, 9, {PT}) int32 table, got {table.dtype} {tuple(table.shape)}")
     if idx.dtype != torch.int32 or idx.dim() != 2 or idx.shape[0] != table.shape[0]:
         raise ValueError(f"pedersen_fold takes (C, N) int32 indices, got {idx.dtype} {tuple(idx.shape)}")
     if _device_of(table, idx).type == "cpu":
         return pedersen_fold_plain(table, idx)
-    table, idx = table.contiguous(), idx.contiguous()
+    idx = idx.contiguous()
     C, N = idx.shape
     out = torch.empty((N, PT), dtype=torch.int32, device=idx.device)
     if N:
-        _launch("pedersen_fold", idx, table.data_ptr(), idx.data_ptr(), out.data_ptr(), C, N,
-                constant("d", idx.device).data_ptr())
+        _launch("pedersen_fold", idx, fold_table(table).data_ptr(), idx.data_ptr(), out.data_ptr(), C, N)
     return out
 
 
@@ -286,4 +369,5 @@ def fr_sqrt(a):
 __all__ = [
     "jubjub_add", "jubjub_add_plain", "pedersen_fold", "pedersen_fold_plain", "fr_sqrt", "fr_sqrt_plain",
     "edwards_add", "identity_rows", "constant", "root_of_unity", "sqrt_exponent_bits", "sqrt_schedule", "D_MONT", "S",
+    "fold_table", "ADD_LAYERS", "FOLD_LAYERS", "ADD_NS", "FOLD_NS", "ADD_OUT", "FOLD_ENTRY", "NONE",
 ]

@@ -6,10 +6,12 @@ d 2^(4j) G_s with digit d = (1 + a + 2b)(1 - 2c) in {±1 .. ±4}. One table
 holds, per chunk position, the nine points of d = -4 .. 4 (d = 0 the
 identity, used for padding), so a batch of N hashes is numpy bit-to-digit
 extraction on the host and one launch of the fold kernel
-(kernels/jubjub.pedersen_fold): one thread a hash adds its C chunk points
-from the identity in chunk order, as the JAX package's fori_loop does, which
-gives the same projective limbs (a tree fold would give the same points
-under other Z). About C complete adds a hash: 172 for a Merkle node.
+(kernels/jubjub.pedersen_fold): a group of threads a hash adds its C chunk
+points from the identity in chunk order, as the JAX package's fori_loop
+does, which gives the same projective limbs (a tree fold would give the same
+points under other Z). About C adds a hash, 172 for a Merkle node: mixed
+adds, since every table entry has Z = 1 (the kernel reads the table in its
+own layout, kernels/jubjub.fold_table, made once per table).
 
 Entry points take ``device`` ("cuda" by default; the tests pass "cpu"); the
 chunk table is cached on the device per chunk count.

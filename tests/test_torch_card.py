@@ -1,9 +1,11 @@
 """Every CUDA kernel of the port against its plain PyTorch version on the
 card, bit for bit (integer arithmetic: the tolerance is exact equality), at
 small widths (1, 3, 32, 1003; the point adds, G1, G2 and Jubjub, also at
-17, one pair past a block, and 128, the widest bucket chain; the inversion
-also at 2, and against the Fermat chain and host ints) with the edge lanes
-first. The Montgomery product runs at each width in every operand
+17, one pair past a block, and 128, the widest bucket chain; the Jubjub
+add also on the 8 pairs of every addition case, and on unaligned rows at
+every width; the Pedersen fold also at 64 and 4,096 hashes, the tree's
+narrowest level and the timed width; the inversion also at 2, and against
+the Fermat chain and host ints) with the edge lanes first. The Montgomery product runs at each width in every operand
 form of the main path (strided and broadcast views, read in place) and on
 unaligned rows. One case proves a tiny circuit on the card and holds the
 proof against the port's CPU proof of the same witness.
@@ -275,12 +277,17 @@ def _jubjub_rows(width, seed, dev):
 
 def check_jubjub_add(dev, width):
     """The Edwards add on contiguous and strided rows (the MSM ladder's
-    even and odd views), against its plain version and the host curve."""
+    even and odd views) and on rows whose base and stride are not 16-byte
+    aligned (the kernel's 4-byte staging), against its plain version and the
+    host curve; at width 8 the lanes are every addition case (O + O, P + P,
+    P + (-P), O + P, P + O, the order-2 point twice) and two generic pairs."""
     P, Q = _jubjub_rows(width, 50, dev)
     want = KJ.jubjub_add_plain(P, Q)
     pairs = torch.cat([P, Q], dim=1)
+    Pu, Qu = (torch.cat([x[:, :1], x], dim=1)[:, 1:] for x in (P, Q))  # rows of 49 words, one word in
     assert torch.equal(_launched("jubjub_add", lambda: KJ.jubjub_add(P, Q)), want)
     assert torch.equal(_launched("jubjub_add", lambda: KJ.jubjub_add(pairs[:, :48], pairs[:, 48:])), want)
+    assert torch.equal(_launched("jubjub_add", lambda: KJ.jubjub_add(Pu, Qu)), want)
     dec = [J.decode_points(*(r[:, 16 * i : 16 * (i + 1)] for i in range(3))) for r in (P, Q, want)]
     assert dec[2] == [a + b for a, b in zip(dec[0], dec[1])]
 
@@ -355,9 +362,9 @@ CASES = (
     + [(check_affine_pre_post, (g, w)) for g in (1, 2) for w in WIDTHS]
     + [(check_int8_dot, (w,)) for w in WIDTHS]
     + [(check_mont_mul_mxu, (w,)) for w in WIDTHS]
-    + [(check_jubjub_add, (w,)) for w in ADD_WIDTHS]
+    + [(check_jubjub_add, (w,)) for w in sorted(ADD_WIDTHS + [8])]
     + [(check_fr_sqrt, (w,)) for w in WIDTHS]
-    + [(check_pedersen_fold, (w,)) for w in WIDTHS]
+    + [(check_pedersen_fold, (w,)) for w in WIDTHS + [64, 4096]]
     + [(check_card_proof, ())]
 )
 

@@ -2,11 +2,14 @@
 version for Fq and Fr (the divstep GCD, against the JAX package's Fermat
 chain, the port's chain over the plain product and host ints), its constants
 in the CUDA source, and its routing (kernels/mont_mul.mont_inv: every
-inversion of the proof path is one launch), and the adds' thread schedule on G1 and
+inversion of the proof path is one launch), the adds' thread schedule on G1 and
 G2 (kernels/point_add.ADD_L1 ... ADD_OUT, and LEAF_LIN for the leaf form) on
-host ints and in the CUDA source. Integer arithmetic: every comparison is
-exact."""
+host ints and in the CUDA source, and the Edwards add's and the Pedersen
+fold's layers (kernels/jubjub.ADD_LAYERS, FOLD_LAYERS and fold_table) on
+host ints, against the plain versions, the host curve and the CUDA source.
+Integer arithmetic: every comparison is exact."""
 
+import functools
 import os
 import random
 import re
@@ -20,11 +23,16 @@ import torch
 
 from masp_tpu.ops import field_jax as FJ
 from masp_tpu_torch.host.bls12_381 import G1, G2, Fq2, R
+from masp_tpu_torch.host.fields import JubjubFr
+from masp_tpu_torch.host.jubjub import ExtendedPoint
+from masp_tpu_torch.host.primitives.constants import spending_key_generator
 from masp_tpu_torch.kernels import LAUNCHES
 from masp_tpu_torch.kernels import affine as AK
+from masp_tpu_torch.kernels import jubjub as KJ
 from masp_tpu_torch.kernels import mont_mul as MK
 from masp_tpu_torch.kernels import point_add as PA
 from masp_tpu_torch.ops import field as F
+from masp_tpu_torch.ops import pedersen as PED
 from masp_tpu_torch.ops import weierstrass as W
 from masp_tpu_torch.ops.field import FQ, FR
 from masp_tpu_torch.ops.projective import unpack_rows
@@ -318,6 +326,147 @@ def test_g2_schedule_matches_cuda_source():
     assert "point_add_kernel" not in src
 
 
+# --- the Edwards add's and the fold's layers ----------------------------------------------
+
+_RF = FR.modulus
+_RF_INV = pow(FR.R_mod, -1, _RF)
+
+
+def _run_layers(layers, slots):
+    """A schedule of kernels/jubjub.py on Montgomery-form ints, one row after
+    another: the kernel's threads in some order (a layer's rows are
+    independent)."""
+    for kind, rows in layers:
+        for row in rows:
+            if kind == "mul":
+                out, a, b = row
+                slots[out] = slots[a] * slots[b] * _RF_INV % _RF
+            else:
+                out, x, sign, y, z = row
+                t = slots[y] if z == KJ.NONE else (slots[y] + slots[z]) % _RF
+                slots[out] = (slots[x] + sign * t) % _RF
+    return slots
+
+
+@functools.cache
+def _order8():
+    """A point of order 8: a decoded point times the subgroup order."""
+    rng = random.Random(8)
+    while True:
+        p = ExtendedPoint.from_bytes(rng.randbytes(32))
+        t = None if p is None else p.mul_scalar_int(JubjubFr.META.modulus)
+        if t is not None and not t.mul_scalar_int(4).is_identity():
+            return t
+
+
+def _edwards_case(name):
+    rng = random.Random(67)
+    g = spending_key_generator()
+    P, Qp = (g.mul_scalar_int(rng.randrange(1, JubjubFr.META.modulus)) for _ in range(2))
+    O, t8 = ExtendedPoint.identity(), _order8()
+    return {"P+Q": (P, Qp), "P+P": (P, P), "P+(-P)": (P, -P), "O+P": (O, P), "O+O": (O, O),
+            "T2+P": (t8.mul_scalar_int(4), P), "T4+T8": (t8.mul_scalar_int(2), t8), "T8+T8": (t8, t8)}[name]
+
+
+def _edwards_rows(point, lam):
+    """(1, 48) rows of ``point`` as (lam u : lam v : lam)."""
+    u, v = point.to_affine()
+    vals = [u.n * lam % _RF, v.n * lam % _RF, lam % _RF]
+    return torch.as_tensor(np.concatenate([F.encode(FR, [x]) for x in vals], axis=1).astype(np.int32))
+
+
+def _raw(rows):
+    """(n, 16 k) Montgomery limb rows -> n lists of k stored ints."""
+    k = rows.shape[1] // FR.L
+    cols = [F.decode(FR, rows[:, FR.L * i : FR.L * (i + 1)], mont=False) for i in range(k)]
+    return [list(v) for v in zip(*cols)]
+
+
+def _word_ints(words):
+    """(32,) fold-table words -> its FOLD_ENTRY stored ints."""
+    w = np.asarray(words).astype(np.uint32).astype(object)
+    return [sum(int(w[8 * e + j]) << (32 * j) for j in range(8)) for e in range(KJ.FOLD_ENTRY)]
+
+
+EDWARDS_CASES = ["P+Q", "P+P", "P+(-P)", "O+P", "O+O", "T2+P", "T4+T8", "T8+T8"]
+
+
+@pytest.mark.parametrize("form,case", [(f, c) for f in ("add", "mixed") for c in EDWARDS_CASES] + [("fold", "172")],
+                         ids=[f"{f}-{c}" for f in ("add", "mixed") for c in EDWARDS_CASES] + ["fold-172"])
+def test_edwards_schedule(form, case):
+    """The layers of jubjub_add_kernel (ADD_LAYERS: the complete add, the
+    first operand with general Z) and of pedersen_fold_kernel's step
+    (FOLD_LAYERS: the mixed add of a fold-table entry, Z2 = 1) give the
+    limbs of edwards_add over mont_mul_plain and the host curve's sum, on
+    generic points, doubling, inverses, the identity and points of order 2,
+    4 and 8; and the fold's steps over fold_table's layout of the Merkle
+    hash's 172-chunk table give pedersen_fold_plain's limbs."""
+    slots = [0] * (KJ.FOLD_NS + KJ.FOLD_ENTRY)
+    if form == "fold":
+        table = PED._chunk_tables(172, "cpu")
+        words = KJ.fold_table(table).numpy()
+        idx = np.random.default_rng(13).integers(0, 9, (172, 3), dtype=np.int32)
+        want = _raw(KJ.pedersen_fold_plain(table, torch.as_tensor(idx)))
+        for h in range(idx.shape[1]):
+            slots[:3] = [0, FR.R_mod % _RF, FR.R_mod % _RF]
+            for c in range(idx.shape[0]):
+                slots[KJ.FOLD_NS :] = _word_ints(words[c, idx[c, h]])
+                _run_layers(KJ.FOLD_LAYERS, slots)
+            assert slots[:3] == want[h]
+        return
+    a, b = _edwards_case(case)
+    p = _edwards_rows(a, 0x1234567)
+    q = _edwards_rows(b, 1 if form == "mixed" else 0x89ABCDE)
+    want = _raw(KJ.jubjub_add_plain(p, q))[0]
+    if form == "add":
+        slots[:6] = _raw(p)[0] + _raw(q)[0]
+        slots[KJ.ADD_NS] = F.decode(FR, KJ.D_MONT[None], mont=False)[0]
+        got = _run_layers(KJ.ADD_LAYERS, slots)[KJ.ADD_OUT : KJ.ADD_OUT + 3]
+    else:
+        slots[:3] = _raw(p)[0]
+        slots[KJ.FOLD_NS :] = _word_ints(KJ.fold_table(q.expand(9, -1).reshape(1, 9, 48))[0, 0].numpy())
+        got = _run_layers(KJ.FOLD_LAYERS, slots)[:3]
+    assert got == want
+    X, Y, Z = got
+    zi = pow(Z, -1, _RF)
+    assert (X * zi % _RF, Y * zi % _RF) == tuple(c.n for c in (a + b).to_affine())
+
+
+_EDWARDS_TABLES = {"ADD": ["LIN0", "L1", "LIN1", "L2", "L3", "LIN2", "L4"],
+                   "FOLD": ["LIN0", "L1", "LIN1", "L2", "LIN2", "L3"]}
+
+
+def test_edwards_schedule_matches_cuda_source():
+    """csrc/jubjub.cu holds kernels/jubjub.py's tables and slot counts, its
+    two layered kernels run the layers in ADD_LAYERS' and FOLD_LAYERS'
+    order, its carry-chain product's constants are Fr's modulus words, and
+    fr_sqrt_kernel keeps field.cuh's fe_mul."""
+    src = (CSRC / "jubjub.cu").read_text()
+    for form, names in _EDWARDS_TABLES.items():
+        layers = getattr(KJ, form + "_LAYERS")
+        assert [rows for _, rows in layers] == [getattr(KJ, f"{form}_{n}") for n in names]
+        for name in names:
+            body = re.search(form + "_" + name + r"\[\d+\]\[\d+\] = \{(.*?)\};", src, re.S).group(1)
+            body = re.sub(r"//[^\n]*", "", body).replace("NONE", str(KJ.NONE))
+            assert [int(x) for x in re.findall(r"-?\d+", body)] == [v for row in getattr(KJ, f"{form}_{name}")
+                                                                    for v in row], name
+        kernel = src[src.index("jubjub_add_kernel(" if form == "ADD" else "pedersen_fold_kernel("):]
+        kernel = kernel[: kernel.index("\n}\n")]
+        rows_of = {}  # each Rows variable: (table, its rows, its width)
+        for count, width, decls in re.findall(r"Rows<(\d+), (\d)> ([^;]*);", kernel):
+            for var, table in re.findall(r"(\w+)\(" + form + r"_(\w+), t\)", decls):
+                rows_of[var] = (table, int(count), int(width))
+        calls = [(kind, rows_of[var]) for kind, var in re.findall(r"(lin|mul)_layer<" + form + r"_NS>\((\w+),", kernel)]
+        assert calls == [(kind, (n, len(rows), 3 if kind == "mul" else 5)) for (kind, rows), n in zip(layers, names)]
+    consts = dict(re.findall(r"constexpr int (\w+) = (\d+);", src))
+    assert (int(consts["NONE"]), int(consts["ADD_NS"]), int(consts["FOLD_NS"]), int(consts["ADD_OUT"])) == (
+        KJ.NONE, KJ.ADD_NS, KJ.FOLD_NS, KJ.ADD_OUT)
+    words = {int(k): int(v, 16) for k, v in re.findall(r"FR_W(\d) = (0x[0-9a-f]+)u", src)}
+    assert sum(words[j] << (32 * j) for j in range(8)) == _RF and len(words) == 8
+    sqrt = src[src.index("fr_sqrt_kernel("): src.index("#ifdef MASP_JUBJUB_PROBE")]
+    assert "fe_mul(" in sqrt and "fr_mul(" not in sqrt
+
+
 def _cuda_words(src, name):
     body = re.search(name + r"\[(\d+)\] = \{(.*?)\};", src, re.S)
     return int(body.group(1)), [int(x.rstrip("u"), 0) for x in re.findall(r"0x[0-9a-f]+u?|\d+", body.group(2))]
@@ -357,3 +506,5 @@ def test_redesigned_wrappers_check_inputs():
     before = dict(LAUNCHES)
     MK.mont_inv(FQ, torch.zeros(2, 24, dtype=torch.int32))
     assert LAUNCHES == before
+    with pytest.raises(ValueError):  # the fold kernel takes entries with Z = 1 only
+        KJ.fold_table(torch.zeros(1, 9, 48, dtype=torch.int32))
