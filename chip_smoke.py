@@ -14,11 +14,13 @@ circuits' parameters (phase "batch", which also runs the bundle through
 BatchValidator with the signature batches on the host and on the card). Every
 proof is checked with the host pairing verifier, and against a toxic-waste
 oracle or the single-proof path. Last, phase "jubjub" holds the three
-Jubjub kernels (the Edwards add, the Pedersen fold, the Fr square root)
-against their plain versions and drives the Jubjub and Pedersen twins: a
-note-commitment tree of 2^16 leaves through the default route, a RedJubjub
-batch of 256 signatures, an MSM of 2^10 points and the decompression of
-4,096 encodings, each held against the host.
+Jubjub kernels (the Edwards add, the Pedersen fold, the Fr square root, the
+last also on values of every 2-adic order) against their plain versions and
+drives the Jubjub and Pedersen twins: a note-commitment tree of 2^16 leaves
+through the default route, a RedJubjub batch of 256 signatures, an MSM of
+2^10 points and the decompression of 4,096 encodings, each held against the
+host; it logs the widths at which the path launches the add and the square
+root, with their kernel time.
 
     python3 chip_smoke.py             # everything (one card)
     python3 chip_smoke.py --kernels   # build, the proof path's kernel checks and the tools only
@@ -1074,8 +1076,10 @@ def tools_phase(dev, rng, card) -> dict:
     96), on the full signed range, at a ragged (1003, 40) @ (40, 90) and
     (1003, 37) @ (37, 90), and at K = 1 and K = 64;
     int8_dot_loop at k = 8 and 64; mont_mul_mxu against its plain version,
-    mont_mul and mont_mul_plain at 2^17 reduced Fq rows with edge lanes and
-    at 1003 rows. Then both tools' main at full size, with the launch counts
+    mont_mul and mont_mul_plain at 2^17 reduced Fq rows with the edge lanes
+    first (0, 1, q - 1, 2, q - 2 in Montgomery form and the raw 1) and at
+    1003 rows (also as contiguous rows one int32 into their buffer, not
+    16-byte aligned), and timed beside mont_mul_fq on the same rows. Then both tools' main at full size, with the launch counts
     zeroed just before and read just after: each of the three kernels must
     have launched there."""
     import torch
@@ -1122,6 +1126,12 @@ def tools_phase(dev, rng, card) -> dict:
     ar, br = a[:1003], b[:1003]
     _check_equal("mont_mul_mxu (ragged)", MX.mont_mul_mxu(FQ, ar, br), MX.mont_mul_mxu_plain(FQ, ar, br))
     _check_equal("mont_mul_mxu (ragged) vs mont_mul", MX.mont_mul_mxu(FQ, ar, br), MK.mont_mul(FQ, ar, br))
+    # contiguous rows one int32 into their buffer: the kernel's 4-byte staging
+    bufs = torch.zeros((2, 1003 * FQ.L + 1), dtype=torch.int32, device=dev)
+    bufs[0, 1:], bufs[1, 1:] = ar.reshape(-1), br.reshape(-1)
+    au, bu = (bufs[i, 1:].view(1003, FQ.L) for i in (0, 1))
+    _check_equal("mont_mul_mxu (unaligned)", MX.mont_mul_mxu(FQ, au, bu), MX.mont_mul_mxu_plain(FQ, ar, br))
+    _check_equal("mont_mul_mxu (unaligned) vs mont_mul", MX.mont_mul_mxu(FQ, au, bu), MK.mont_mul(FQ, ar, br))
 
     dot_bytes, mxu_bytes = M * K + K * N + 4 * M * N, 3 * n * FQ.L * 4
     lib_ms, why = _int_mm_ms(x, w, plain, dot_bytes)
@@ -1160,9 +1170,10 @@ def tools_phase(dev, rng, card) -> dict:
             f"at the data sheet's {'1,979 int8 TOPS' if name.startswith('int8') else 'INT32 IMAD rate'}) on {card}")
     if why:
         log(f"kernel int8_dot: library_ms null: {why}")
-    log(f"kernel mont_mul_fq at the same {n} rows: "
-        f"{_kernel_ms(lambda p, q: MK.mont_mul(FQ, p, q), (a, b), mxu_bytes):.4f} ms per "
-        f"launch in a CUDA graph on {card}")
+    # the tool's question on this card: the tensor-core reductions against the integer product
+    out["mont_mul_mxu"]["mont_mul_fq_ms"] = _kernel_ms(lambda p, q: MK.mont_mul(FQ, p, q), (a, b), mxu_bytes)
+    log(f"kernel mont_mul_fq at the same {n} rows: {out['mont_mul_mxu']['mont_mul_fq_ms']:.4f} ms per launch in a "
+        f"CUDA graph, inputs from HBM, against mont_mul_mxu's {out['mont_mul_mxu']['ms']:.4f} ms on {card}")
 
     reset_launches()
     t0 = time.perf_counter()
@@ -1622,16 +1633,68 @@ def _jubjub_cases():
     return ps + [ps[0], ps[1], ExtendedPoint.identity(), t], qs + [ps[0], -ps[1], ps[2], t]
 
 
-def _sqrt_products() -> int:
-    """Fr products of one square root as fr_sqrt_kernel runs it: a squaring
-    per exponent bit and a product per set bit, x and b, b^2, one squaring
-    an inner step, four products a boundary step, the final check."""
+def _sqrt_products() -> tuple[int, int]:
+    """(squarings, other Fr products) of one square root as fr_sqrt_kernel
+    runs it: the 4-bit window's table (a^2 by a squaring, a^3 .. a^15 by
+    products) and walk (SQRT_WINDOW squarings a digit after the first, a
+    product a non-zero digit), x = a w and b = x w, b^2, one squaring an
+    inner step, two squarings and two products a boundary step, and the
+    final x^2: 752 squarings and 129 other products."""
+    from masp_tpu_torch.kernels import jubjub as KJ
+
+    digits = KJ.SQRT_DIGITS
+    table_sqr, table_mul = 1, (1 << KJ.SQRT_WINDOW) - 3
+    walk_sqr = KJ.SQRT_WINDOW * (len(digits) - 1)
+    walk_mul = sum(1 for d in digits[1:] if d)
+    steps = KJ.sqrt_schedule()
+    inner = sum(1 for j in steps if j)
+    bounds = len(steps) - inner
+    return table_sqr + walk_sqr + 1 + inner + 2 * bounds + 1, table_mul + walk_mul + 2 + 2 * bounds
+
+
+def _two_adic_values(odd: int = 4, seed: int = 0) -> list[int]:
+    """Fr values that drive every branch of the Tonelli-Shanks steps: z^(2^k)
+    c^2 for k = 1 .. S, whose 2-part has order 2^(S - k) exactly (c^2 = u^(2^S)
+    lies in the odd-order subgroup), ``odd`` non-squares z^j c^2 with j odd,
+    then 0, 1 and -1."""
+    from masp_tpu_torch.kernels import jubjub as KJ
+    from masp_tpu_torch.ops.field import FR
+
+    rng, z, r, S = random.Random(seed), KJ.root_of_unity(), FR.modulus, KJ.S
+
+    def c2():
+        return pow(rng.randrange(1, r), 1 << S, r)
+
+    vals = [pow(z, 1 << k, r) * c2() % r for k in range(1, S + 1)]
+    vals += [pow(z, 2 * rng.randrange(1 << (S - 1)) + 1, r) * c2() % r for _ in range(odd)]
+    return vals + [0, 1, r - 1]
+
+
+def _sqrt_products_bitwise() -> int:
+    """The same with the exponent walked bit by bit (a squaring a bit, a
+    product a set bit), as the ff crate, the JAX program and the plain version
+    walk it: the count behind the square root's bound column (951)."""
     from masp_tpu_torch.kernels import jubjub as KJ
 
     bits = KJ.sqrt_exponent_bits()
     steps = KJ.sqrt_schedule()
     inner = sum(1 for j in steps if j)
     return len(bits) + sum(bits) + 3 + inner + 4 * (len(steps) - inner) + 1
+
+
+def _sqrt_rows(n, rng, dev):
+    """(n, 16) Montgomery rows for the square root: the values of every
+    2-adic order first (_two_adic_values: z^(2^k) c^2 for k = 1 .. 32,
+    non-squares, 0, 1, -1), then _field_inputs' rows."""
+    import torch
+
+    from masp_tpu_torch.ops import field as F
+    from masp_tpu_torch.ops.field import FR
+
+    a, _ = _field_inputs(FR, n, rng, dev)
+    edge = _two_adic_values(seed=rng.randrange(1 << 30))[:n]
+    a[: len(edge)] = torch.as_tensor(F.encode(FR, edge).astype(np.int32), device=dev)
+    return a
 
 
 def jubjub_kernel_phase(dev, rng, card: str):
@@ -1655,10 +1718,12 @@ def jubjub_kernel_phase(dev, rng, card: str):
     from masp_tpu_torch.ops.field import FR
 
     out = {}
-    prod_imad = 2 * (2 * 64 + 8)  # one fe_mul<Fr> (fr_sqrt): 2 (2 W^2 + W) multiply-adds, W = 8
+    prod_imad = 2 * (2 * 64 + 8)  # one fe_mul<Fr>: 2 (2 W^2 + W) multiply-adds, W = 8
     # one fr_mul (the add and the fold): a b's 2 W^2 and m N's 2 W (W - 1),
     # since m = -t0 costs no product and m N[0] = m is an add
     fr_mul_imad = 2 * (2 * 64 - 8)
+    # one fr_sqr: T's 28 cross products and 8 squares, and m N's 2 W (W - 1) a row
+    fr_sqr_imad = 2 * (28 + 8) + 8 * 2 * 7
 
     # the add: the all-cases batch, then the wide batch
     ps, qs = _jubjub_cases()
@@ -1703,9 +1768,9 @@ def jubjub_kernel_phase(dev, rng, card: str):
         "all_cases_ms": _kernel_ms(KJ.jubjub_add, (P8, Q8), 3 * 8 * PT_BYTES, launches=20, from_hbm=False),
     }
 
-    # the square root
+    # the square root: the rows of every 2-adic order first
     n = FR_SQRT_ROWS
-    a, _ = _field_inputs(FR, n, rng, dev)
+    a = _sqrt_rows(n, rng, dev)
     root, ok = KJ.fr_sqrt(a)
     want_root, want_ok = KJ.fr_sqrt_plain(a)
     err = _check_equal("fr_sqrt", root, want_root)
@@ -1721,13 +1786,22 @@ def jubjub_kernel_phase(dev, rng, card: str):
         if not torch.equal(k_, want_ok[:width]):
             raise AssertionError(f"fr_sqrt (width {width}): the flags differ")
     nbytes = n * (2 * 16 + 1) * 4
+    sqr, mul = _sqrt_products()
     out["fr_sqrt"] = {
         "n": n, "max_abs_err": err, "ms": _kernel_ms(KJ.fr_sqrt, (a,), nbytes),
         "eager_ms": _median_ms(lambda: KJ.fr_sqrt(a), 10),
         "plain_ms": _median_ms(lambda: KJ.fr_sqrt_plain(a), 3),
-        "ops_ms": _imad_ms(n * _sqrt_products() * prod_imad), "bytes": nbytes,
-        "products": _sqrt_products(),
+        # the kernel's own 752 fr_sqr and 129 fr_mul; beside it the count
+        # of the bit-by-bit walk on fe_mul (951), as the parent bounded it
+        "ops_ms": _imad_ms(n * (sqr * fr_sqr_imad + mul * fr_mul_imad)), "bytes": nbytes,
+        "ops_ms_fe_mul": _imad_ms(n * _sqrt_products_bitwise() * prod_imad),
+        "products": sqr + mul,
     }
+    log(f"kernel fr_sqrt: bit-identical to plain at widths 1, 3, 32, 1003 and {n}, the first "
+        f"{len(_two_adic_values())} rows of every 2-adic order (z^(2^k) c^2, k = 1 .. 32, non-squares, 0, 1, -1); "
+        f"{sqr + mul} products a row ({sqr} fr_sqr, {mul} fr_mul; {_sqrt_products_bitwise()} bit by bit): "
+        f"operations {out['fr_sqrt']['ops_ms']:.6f} ms as the kernel does them (the bound), "
+        f"{out['fr_sqrt']['ops_ms_fe_mul']:.6f} ms as {_sqrt_products_bitwise()} fe_mul on {card}")
 
     # the fold: every width against the plain version of the widest, then
     # timed at the tree's widths; the table stays in L2 as on the path (each
@@ -1783,15 +1857,16 @@ def jubjub_kernel_phase(dev, rng, card: str):
     log(f"kernel jubjub_add on the all-cases batch (8 pairs): {out['jubjub_add']['all_cases_ms']:.4f} ms per "
         f"launch in a CUDA graph, inputs in L2 on {card}")
     jubjub_sass_report()
-    return out, (P, Q)
+    return out, (P, Q), a
 
 
 def jubjub_sass_report() -> dict:
-    """Static SASS instructions (cuobjdump -sass) of jubjub_add_kernel and
-    pedersen_fold_kernel in the built library, and of the probe kernels of
-    the JUBJUB_PROBE build, each one Fr product between the same 16 loads
-    and 8 stores: probe_fr_mul (the carry-chain product of the two kernels)
-    and probe_fe_mul (field.cuh's fe_mul<Fr>, which fr_sqrt_kernel keeps)."""
+    """Static SASS instructions (cuobjdump -sass) of jubjub_add_kernel,
+    pedersen_fold_kernel and fr_sqrt_kernel in the built library, and of
+    the probe kernels of the JUBJUB_PROBE build, each one Fr product between
+    the same 16 loads and 8 stores: probe_fr_mul and probe_fr_sqr (the
+    carry-chain product and square) and probe_fe_mul (field.cuh's
+    fe_mul<Fr>, which the square root ran before the carry-chain forms)."""
     from collections import Counter
     from pathlib import Path
 
@@ -1802,8 +1877,8 @@ def jubjub_sass_report() -> dict:
         log(f"  sass: no cuobjdump beside nvcc ({tool}): not measured")
         return {}
     out = {}
-    for defines, parts in (((), ("jubjub_add_kernel", "pedersen_fold_kernel")),
-                           (JUBJUB_PROBE, ("probe_fr_mul", "probe_fe_mul"))):
+    for defines, parts in (((), ("jubjub_add_kernel", "pedersen_fold_kernel", "fr_sqrt_kernel")),
+                           (JUBJUB_PROBE, ("probe_fr_mul", "probe_fr_sqr", "probe_fe_mul"))):
         build.library("jubjub", defines)
         text = subprocess.run([str(tool), "-sass", str(build.lib_path("jubjub", defines))], capture_output=True,
                               text=True, timeout=120, check=True).stdout
@@ -1816,8 +1891,9 @@ def jubjub_sass_report() -> dict:
             out[part] = {"instructions": sum(c.values()), "imad": c["IMAD"], "top": dict(c.most_common(8))}
             log(f"  sass {part}: {out[part]['instructions']} instructions (static), IMAD family {c['IMAD']}; most "
                 f"frequent {json.dumps(out[part]['top'])}")
-    log(f"  sass Fr product: the carry-chain fr_mul's probe {out['probe_fr_mul']['instructions']} instructions "
-        f"against fe_mul<Fr>'s {out['probe_fe_mul']['instructions']} (each with the same loads and stores)")
+    log(f"  sass Fr product: the carry-chain fr_mul's probe {out['probe_fr_mul']['instructions']} instructions, "
+        f"fr_sqr's {out['probe_fr_sqr']['instructions']}, against fe_mul<Fr>'s "
+        f"{out['probe_fe_mul']['instructions']} (each with the same loads and stores)")
     return out
 
 
@@ -1839,6 +1915,27 @@ def jubjub_add_path_log(widths, P, Q, card: str) -> None:
         f"{json.dumps(dict(sorted(counts.items())))}); {sum(ms[w] * k for w, k in counts.items()):.4f} ms of kernel "
         f"time summed (in a CUDA graph, inputs in L2; ms per launch by width: "
         f"{json.dumps({w: round(t, 4) for w, t in ms.items()})}) on {card}")
+
+
+def fr_sqrt_path_log(widths, a, card: str) -> dict:
+    """fr_sqrt's launches on the Jubjub path by width (the signature batches'
+    R decompressions and the decompression of the encodings), and their
+    kernel time summed: the kernel timed in a CUDA graph at each width, on
+    rows of a, inputs from HBM from 4,096 rows up. Returns {width: ms}."""
+    from collections import Counter
+
+    from masp_tpu_torch.kernels import jubjub as KJ
+
+    counts = Counter(widths)
+    reps = -(-max(counts) // a.shape[0])
+    a = a.repeat(reps, 1) if reps > 1 else a
+    ms = {w: _kernel_ms(KJ.fr_sqrt, (a[:w].contiguous(),), w * (2 * 16 + 1) * 4, from_hbm=w >= 4096)
+          for w in sorted(counts)}
+    log(f"kernel fr_sqrt on the Jubjub path: {len(widths)} launches (launches by width "
+        f"{json.dumps(dict(sorted(counts.items())))}); {sum(ms[w] * k for w, k in counts.items()):.4f} ms of kernel "
+        f"time summed (in a CUDA graph, inputs from HBM from 4096 rows up; ms per launch by width: "
+        f"{json.dumps({w: round(t, 4) for w, t in ms.items()})}) on {card}")
+    return ms
 
 
 def _tree_levels(n_leaves: int):
@@ -1881,7 +1978,7 @@ def jubjub_phase(dev, rng, card: str) -> dict:
 
     from masp_tpu_torch.kernels import jubjub as KJ
 
-    kern, (add_p, add_q) = jubjub_kernel_phase(dev, rng, card)
+    kern, (add_p, add_q), sqrt_a = jubjub_kernel_phase(dev, rng, card)
     if "MASP_MERKLE_DEVICE_MIN" in os.environ:
         raise AssertionError("[jubjub] MASP_MERKLE_DEVICE_MIN is set: the tree must take the default route")
     q = JubjubFr.META.modulus
@@ -1932,16 +2029,22 @@ def jubjub_phase(dev, rng, card: str) -> dict:
         levels.append((depth, len(pairs), time.perf_counter() - t0))
         return res
 
-    # jubjub_add's widths on the path, through a recorder (the launches still
-    # run and count)
+    # jubjub_add's and fr_sqrt's widths on the path, through recorders (the
+    # launches still run and count)
     add_widths, real_add = [], KJ.jubjub_add
+    sqrt_widths, real_sqrt = [], KJ.fr_sqrt
 
     def record(p, q):
         add_widths.append(p.shape[0])
         return real_add(p, q)
 
+    def record_sqrt(a):
+        sqrt_widths.append(a.shape[0])
+        return real_sqrt(a)
+
     reset_launches()
     KJ.jubjub_add = record
+    KJ.fr_sqrt = record_sqrt
     try:
         # the 256-leaf tree first: its two device levels also take the first
         # use of each library and table out of the timed tree
@@ -1971,6 +2074,7 @@ def jubjub_phase(dev, rng, card: str) -> dict:
         torch.cuda.synchronize()
     finally:
         KJ.jubjub_add = real_add
+        KJ.fr_sqrt = real_sqrt
     launches = dict(LAUNCHES)
     log(f"[jubjub] launches: {json.dumps({k: v for k, v in launches.items() if v})}")
     for name in JUBJUB_KERNELS:
@@ -1979,6 +2083,9 @@ def jubjub_phase(dev, rng, card: str) -> dict:
     if len(add_widths) != launches["jubjub_add"]:
         raise AssertionError(f"[jubjub] {len(add_widths)} adds recorded, {launches['jubjub_add']} launched")
     jubjub_add_path_log(add_widths, add_p, add_q, card)
+    if len(sqrt_widths) != launches["fr_sqrt"]:
+        raise AssertionError(f"[jubjub] {len(sqrt_widths)} square roots recorded, {launches['fr_sqrt']} launched")
+    kern["fr_sqrt"]["path_widths_ms"] = fr_sqrt_path_log(sqrt_widths, sqrt_a, card)
 
     # the tree against the host
     want_levels = [(d, JUBJUB_TREE_LEAVES >> (d + 1)) for d in range(len(levels))]
@@ -2295,9 +2402,12 @@ def main(argv) -> int:
     # "per_proof" (the main path's launches timed at their widths and forms,
     # summed) and "sass"; "all_cases_ms" is jubjub_add's ms on the 8 pairs of
     # every addition case; "widths_ms" pedersen_fold's ms by hashes;
-    # "ops_ms_fe_mul" the add's and the fold's operation bound as the parent
-    # counted it, 12 products of fe_mul's multiply-adds an add or a step
-    # (they run 12 or 11 of fr_mul's fewer)
+    # "ops_ms_fe_mul" the operation bound of the add, the fold and fr_sqrt as
+    # their parents counted it, in fe_mul's multiply-adds: 12 products an
+    # add or a step (they run 12 or 11 of fr_mul's fewer), 951 a square root
+    # (it runs 752 fr_sqr and 129 fr_mul); "path_widths_ms" fr_sqrt's ms at
+    # each width the Jubjub path launches it at;
+    # "mont_mul_fq_ms" mont_mul_fq's ms on mont_mul_mxu's rows
     line = {"kernels": [{
         "name": name, "route": "cuda", "source": SOURCE[name], "replaces": REPLACES[name],
         "launches": k["launches"] if name in TOOL_KERNELS else path_launches(name),
@@ -2309,8 +2419,8 @@ def main(argv) -> int:
         "eager_ms": k["eager_ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
         "bound_by": k["bound_by"], "library_ms": k.get("library_ms"), "bytes": k["bytes"],
         "ops_ms": k["ops_ms"], "ptxas": ptxas[name], "widest": k.get("widest"),
-        **{key: k[key] for key in ("forms", "narrow_ms", "per_proof", "all_cases_ms", "widths_ms", "ops_ms_fe_mul")
-           if key in k},
+        **{key: k[key] for key in ("forms", "narrow_ms", "per_proof", "all_cases_ms", "widths_ms", "ops_ms_fe_mul",
+                                   "path_widths_ms", "mont_mul_fq_ms") if key in k},
         **({"sass": sass[name]} if name in sass else {})}
         for name, k in {**kern, **tools}.items()]}
     print(json.dumps(line))

@@ -71,6 +71,81 @@ __device__ __forceinline__ void store(int32_t* __restrict__ p, const Fe<F>& a) {
   }
 }
 
+// --- a warp's 32 limb rows through shared memory --------------------------------
+//
+// A warp that works on 32 consecutive rows (one a lane) moves them between
+// device memory and a staging area in shared memory with 16-byte accesses on
+// consecutive chunks, instead of one limb a lane at a row's stride: the
+// chunks of the 32 rows are spread over the lanes (chunk c = lane + 32 k
+// is chunk c % CHUNKS of row c / CHUNKS). A staged row is W packed 32-bit
+// words at an odd stride, so that the lanes' reads of their own rows hit 32
+// banks. Used by mont_mul_kernel<F> (mont_mul.cu) and mont_mul_mxu_kernel.
+
+template <class F>
+struct Staging {
+  static constexpr int W = F::W;
+  static constexpr int L = 2 * W;
+  static constexpr int CHUNKS = L / 4;      // 16-byte chunks a row: 4 (Fr), 6 (Fq)
+  static constexpr int STRIDE = W + 1;      // words a staged row: odd (9, 13)
+  static constexpr int AREA = 32 * STRIDE;  // one operand's rows of one warp
+};
+
+// the lane's CHUNKS loads of its warp's 32 rows of one operand (chunk c =
+// lane + 32 k: row c / CHUNKS, whose int32 offset from base that row's lane
+// holds in off), all issued before any is used; VEC: 16-byte loads (base and
+// offsets 16-byte aligned), else 4-byte ones. Every lane of the warp calls it.
+template <class F, bool VEC>
+__device__ __forceinline__ void load_chunks(int4 (&v)[Staging<F>::CHUNKS], const int32_t* base,
+                                            long long off, int lane) {
+  using M = Staging<F>;
+#pragma unroll
+  for (int k = 0; k < M::CHUNKS; k++) {
+    const int c = lane + 32 * k;
+    const int32_t* src = base + __shfl_sync(0xffffffffu, off, c / M::CHUNKS) + 4 * (c % M::CHUNKS);
+    if (VEC) {
+      v[k] = __ldg(reinterpret_cast<const int4*>(src));
+    } else {
+      v[k] = make_int4(__ldg(src), __ldg(src + 1), __ldg(src + 2), __ldg(src + 3));
+    }
+  }
+}
+
+// the loaded chunks as packed words into the warp's staging area; rows at
+// or past live as 0
+template <class F>
+__device__ __forceinline__ void stage_chunks(uint32_t* area, const int4 (&v)[Staging<F>::CHUNKS],
+                                             long long live, int lane) {
+  using M = Staging<F>;
+#pragma unroll
+  for (int k = 0; k < M::CHUNKS; k++) {
+    const int c = lane + 32 * k;
+    const int r = c / M::CHUNKS;
+    const uint32_t keep = r < live ? ~0u : 0u;
+    uint32_t* d = area + r * M::STRIDE + 2 * (c % M::CHUNKS);
+    d[0] = ((uint32_t)v[k].x | ((uint32_t)v[k].y << 16)) & keep;
+    d[1] = ((uint32_t)v[k].z | ((uint32_t)v[k].w << 16)) & keep;
+  }
+}
+
+// the staged rows below live back to 16-bit limbs at out (the warp's first
+// row; rows contiguous, 16-byte aligned): 16 bytes a lane, in order
+template <class F>
+__device__ __forceinline__ void store_chunks(int32_t* __restrict__ out, const uint32_t* area, long long live,
+                                             int lane) {
+  using M = Staging<F>;
+#pragma unroll
+  for (int k = 0; k < M::CHUNKS; k++) {
+    const int c = lane + 32 * k;
+    const int r = c / M::CHUNKS;
+    if (r < live) {
+      const uint32_t* s = area + r * M::STRIDE + 2 * (c % M::CHUNKS);
+      const int4 v = make_int4((int)(s[0] & 0xffffu), (int)(s[0] >> 16),
+                               (int)(s[1] & 0xffffu), (int)(s[1] >> 16));
+      *reinterpret_cast<int4*>(out + 4 * (long long)c) = v;
+    }
+  }
+}
+
 // --- arithmetic ---------------------------------------------------------------
 
 // r = t - N when t + carry * 2^(32W) >= N, else t

@@ -24,20 +24,21 @@
 // add is 12 products against 3 x 192 B of rows, about 5.7 multiply-adds a
 // byte, near the card's ratio (1.67e13 IMAD/s over 3.35e12 B/s); a fold
 // step is 11 products (the mixed add below) against one index and one
-// cached table entry; a square root about 950 dependent products against
-// two rows. All three are bound by operations, and at the widths the
+// cached table entry; a square root 881 dependent products against two
+// rows. All three are bound by operations, and at the widths the
 // Jubjub path launches (an MSM's bucket chains at 1-32 pairs, a tree's
 // levels at 64-32,768 hashes) by the latency of dependent products.
 //
 // The design against that: (1) the Fr product is fr_mul, a carry chain in
-// PTX (below) instead of field.cuh's C-level CIOS fe_mul, which fr_sqrt_kernel
-// keeps; (2) the add and the fold give each pair (hash) a group of GROUP
-// threads of one warp that share the formula's products in layers of
-// independent products, with the linear steps between them; the operands
-// live in shared memory as packed 32-bit words, staged with 16-byte loads
-// and written back with 16-byte stores, and the layers synchronise with
-// __syncwarp only; (3) the fold's table is made for it: every entry has
-// Z = 1, so each step is the mixed add (Z1 Z2 = Z1), and E = d C D is
+// PTX (below) instead of field.cuh's C-level CIOS fe_mul, and a square is
+// fr_sqr, which forms each cross product once; the square root walks its
+// exponent by 4-bit windows; (2) the add and the fold give each pair (hash)
+// a group of GROUP threads of one warp that share the formula's products in
+// layers of independent products, with the linear steps between them; the
+// operands live in shared memory as packed 32-bit words, staged with 16-byte
+// loads and written back with 16-byte stores, and the layers synchronise
+// with __syncwarp only; (3) the fold's table is made for it: every entry
+// has Z = 1, so each step is the mixed add (Z1 Z2 = Z1), and E = d C D is
 // (X1 Y1)(d X2 Y2) with d X2 Y2 precomputed, 11 products in 3 layers; the
 // block's hashes walk the chunks in step, so chunk c + 1's nine entries are
 // copied into shared memory (cp.async, double-buffered) while chunk c is
@@ -47,8 +48,6 @@
 
 using FrE = Fe<Fr>;
 
-// fr_sqrt_kernel: threads a block, one a row
-constexpr int JUB_THREADS = 128;
 constexpr int PT = 48;  // int32 limbs a packed point: X | Y | Z
 
 // Threads a pair (hash) and threads a block of the add and the fold. 4 and
@@ -106,6 +105,54 @@ __device__ __forceinline__ void fr_reduce(FrE& r, const uint32_t* t) {
   for (int j = 0; j < 8; j++) r.w[j] = borrow ? t[j] : d[j];
 }
 
+// One reduction row of fr_mul and fr_sqr on the value E + O 2^32 (9 words
+// each): m = -E0; E += m N_even and O += m N_odd, and c (the carry of the
+// row's regrouping, below) at position 1, where m N0's high word, 0, goes.
+// E0 + m is 0 with a carry exactly when E0 != 0, and so is E0 + (2^32 - 1)
+// = E0 + FR_W1: the chain adds that instead, E0 is not read again.
+__device__ __forceinline__ void fr_reduce_row(uint32_t (&e)[9], uint32_t (&o)[9], uint32_t c) {
+  const uint32_t m = 0u - e[0];
+  asm("add.cc.u32 %0, %0, %10;\n\t"
+      "addc.cc.u32 %1, %1, %11;\n\t"
+      "madc.lo.cc.u32 %2, %9, %12, %2;\n\t"
+      "madc.hi.cc.u32 %3, %9, %12, %3;\n\t"
+      "madc.lo.cc.u32 %4, %9, %13, %4;\n\t"
+      "madc.hi.cc.u32 %5, %9, %13, %5;\n\t"
+      "madc.lo.cc.u32 %6, %9, %14, %6;\n\t"
+      "madc.hi.cc.u32 %7, %9, %14, %7;\n\t"
+      "addc.u32 %8, %8, 0;"
+      : "+r"(e[0]), "+r"(e[1]), "+r"(e[2]), "+r"(e[3]), "+r"(e[4]), "+r"(e[5]), "+r"(e[6]), "+r"(e[7]),
+        "+r"(e[8])
+      : "r"(m), "r"(FR_W1), "r"(c), "r"(FR_W2), "r"(FR_W4), "r"(FR_W6));
+  asm("mad.lo.cc.u32 %0, %9, %10, %0;\n\t"
+      "madc.hi.cc.u32 %1, %9, %10, %1;\n\t"
+      "madc.lo.cc.u32 %2, %9, %11, %2;\n\t"
+      "madc.hi.cc.u32 %3, %9, %11, %3;\n\t"
+      "madc.lo.cc.u32 %4, %9, %12, %4;\n\t"
+      "madc.hi.cc.u32 %5, %9, %12, %5;\n\t"
+      "madc.lo.cc.u32 %6, %9, %13, %6;\n\t"
+      "madc.hi.cc.u32 %7, %9, %13, %7;\n\t"
+      "addc.u32 %8, %8, 0;"
+      : "+r"(o[0]), "+r"(o[1]), "+r"(o[2]), "+r"(o[3]), "+r"(o[4]), "+r"(o[5]), "+r"(o[6]), "+r"(o[7]),
+        "+r"(o[8])
+      : "r"(m), "r"(FR_W1), "r"(FR_W3), "r"(FR_W5), "r"(FR_W7));
+}
+
+// t = E / 2^32 + O after the last row (below 2^256: O8 is 0, the carry out none)
+__device__ __forceinline__ void fr_shift_sum(uint32_t (&t)[8], const uint32_t (&e)[9], const uint32_t (&o)[9]) {
+  asm("add.cc.u32 %0, %8, %16;\n\t"
+      "addc.cc.u32 %1, %9, %17;\n\t"
+      "addc.cc.u32 %2, %10, %18;\n\t"
+      "addc.cc.u32 %3, %11, %19;\n\t"
+      "addc.cc.u32 %4, %12, %20;\n\t"
+      "addc.cc.u32 %5, %13, %21;\n\t"
+      "addc.cc.u32 %6, %14, %22;\n\t"
+      "addc.u32 %7, %15, %23;"
+      : "=&r"(t[0]), "=&r"(t[1]), "=&r"(t[2]), "=&r"(t[3]), "=&r"(t[4]), "=&r"(t[5]), "=&r"(t[6]), "=&r"(t[7])
+      : "r"(e[1]), "r"(e[2]), "r"(e[3]), "r"(e[4]), "r"(e[5]), "r"(e[6]), "r"(e[7]), "r"(e[8]), "r"(o[0]),
+        "r"(o[1]), "r"(o[2]), "r"(o[3]), "r"(o[4]), "r"(o[5]), "r"(o[6]), "r"(o[7]));
+}
+
 __device__ __forceinline__ void fr_mul(FrE& r, const FrE& x, const FrE& y) {
   const uint32_t* a = x.w;
   uint32_t e[9], o[9];
@@ -161,48 +208,183 @@ __device__ __forceinline__ void fr_mul(FrE& r, const FrE& x, const FrE& y) {
         o[k] = O[k];
       }
     }
-    // reduce: m = -E0; E += m N_even with N0 = 1 as the carry of E0 != 0
-    const uint32_t m = 0u - e[0];
-    asm("add.cc.u32 %0, %0, %10;\n\t"
-        "addc.cc.u32 %1, %1, 0;\n\t"
-        "madc.lo.cc.u32 %2, %9, %11, %2;\n\t"
-        "madc.hi.cc.u32 %3, %9, %11, %3;\n\t"
-        "madc.lo.cc.u32 %4, %9, %12, %4;\n\t"
-        "madc.hi.cc.u32 %5, %9, %12, %5;\n\t"
-        "madc.lo.cc.u32 %6, %9, %13, %6;\n\t"
-        "madc.hi.cc.u32 %7, %9, %13, %7;\n\t"
-        "addc.u32 %8, %8, 0;"
-        : "+r"(e[0]), "+r"(e[1]), "+r"(e[2]), "+r"(e[3]), "+r"(e[4]), "+r"(e[5]), "+r"(e[6]), "+r"(e[7]),
-          "+r"(e[8])
-        : "r"(m), "r"(FR_W1), "r"(FR_W2), "r"(FR_W4), "r"(FR_W6));
-    // O += m N_odd
-    asm("mad.lo.cc.u32 %0, %9, %10, %0;\n\t"
-        "madc.hi.cc.u32 %1, %9, %10, %1;\n\t"
-        "madc.lo.cc.u32 %2, %9, %11, %2;\n\t"
-        "madc.hi.cc.u32 %3, %9, %11, %3;\n\t"
-        "madc.lo.cc.u32 %4, %9, %12, %4;\n\t"
-        "madc.hi.cc.u32 %5, %9, %12, %5;\n\t"
-        "madc.lo.cc.u32 %6, %9, %13, %6;\n\t"
-        "madc.hi.cc.u32 %7, %9, %13, %7;\n\t"
-        "addc.u32 %8, %8, 0;"
-        : "+r"(o[0]), "+r"(o[1]), "+r"(o[2]), "+r"(o[3]), "+r"(o[4]), "+r"(o[5]), "+r"(o[6]), "+r"(o[7]),
-          "+r"(o[8])
-        : "r"(m), "r"(FR_W1), "r"(FR_W3), "r"(FR_W5), "r"(FR_W7));
+    fr_reduce_row(e, o, 0u);
   }
   // t = E / 2^32 + O (O8 is 0: t < 2N < 2^256), then t - N where t >= N
   uint32_t t[8];
-  asm("add.cc.u32 %0, %8, %16;\n\t"
-      "addc.cc.u32 %1, %9, %17;\n\t"
-      "addc.cc.u32 %2, %10, %18;\n\t"
-      "addc.cc.u32 %3, %11, %19;\n\t"
-      "addc.cc.u32 %4, %12, %20;\n\t"
-      "addc.cc.u32 %5, %13, %21;\n\t"
-      "addc.cc.u32 %6, %14, %22;\n\t"
-      "addc.u32 %7, %15, %23;"
-      : "=&r"(t[0]), "=&r"(t[1]), "=&r"(t[2]), "=&r"(t[3]), "=&r"(t[4]), "=&r"(t[5]), "=&r"(t[6]), "=&r"(t[7])
-      : "r"(e[1]), "r"(e[2]), "r"(e[3]), "r"(e[4]), "r"(e[5]), "r"(e[6]), "r"(e[7]), "r"(e[8]), "r"(o[0]),
-        "r"(o[1]), "r"(o[2]), "r"(o[3]), "r"(o[4]), "r"(o[5]), "r"(o[6]), "r"(o[7]));
+  fr_shift_sum(t, e, o);
   fr_reduce(r, t);
+}
+
+// --- the carry-chain Fr squaring --------------------------------------------------------
+//
+// r = a^2 2^-256 mod r, fr_mul(a, a)'s limbs with each cross product a_i a_j
+// (i < j) formed once. The wide square T (16 words) first: the cross
+// products of row i, a_i a_j for j > i at positions i + j, are two unbroken
+// chains, j = i + 1, i + 3, ... from the odd position 2i + 1 (accumulator
+// q) and j = i + 2, i + 4, ... from the even position 2i + 2 (accumulator
+// p); each chain's carry enters the word above its end, which holds at most
+// a carry bit of the row before (the rows below i sum to less than
+// 2^(32 (i + 8) + 1) in either accumulator), so it carries no further. Then
+// T = 2 (p + q) + sum a_i^2 2^(64 i). The reduction splits T = T_lo + T_hi
+// 2^256: (T + M N) / R = (T_lo + M N) / R + T_hi, the first term fr_mul's
+// reduction rows without the product (E starts as T_lo, O as 0), at most N,
+// and T_hi < N, so the sum is below 2N and one conditional subtraction
+// gives the unique reduced value, fr_mul's. Without the product chain, a
+// row's regrouping carry (E0 = O0 + E1) enters the reduction chain at
+// position 1. Multiply-adds: 2 (28 + 8) for T and 2 x 7 a reduction row,
+// 184 against fr_mul's 240.
+
+// acc[0 .. 2K] += b (x[0] + x[2] 2^64 + ... + x[2K - 2] 2^(64 (K - 1))), the carry into acc[2K]
+template <int K>
+__device__ __forceinline__ void sqr_row(uint32_t* acc, const uint32_t* x, uint32_t b);
+
+template <>
+__device__ __forceinline__ void sqr_row<1>(uint32_t* acc, const uint32_t* x, uint32_t b) {
+  asm("mad.lo.cc.u32 %0, %3, %4, %0;\n\t"
+      "madc.hi.cc.u32 %1, %3, %4, %1;\n\t"
+      "addc.u32 %2, %2, 0;"
+      : "+r"(acc[0]), "+r"(acc[1]), "+r"(acc[2])
+      : "r"(x[0]), "r"(b));
+}
+
+template <>
+__device__ __forceinline__ void sqr_row<2>(uint32_t* acc, const uint32_t* x, uint32_t b) {
+  asm("mad.lo.cc.u32 %0, %5, %7, %0;\n\t"
+      "madc.hi.cc.u32 %1, %5, %7, %1;\n\t"
+      "madc.lo.cc.u32 %2, %6, %7, %2;\n\t"
+      "madc.hi.cc.u32 %3, %6, %7, %3;\n\t"
+      "addc.u32 %4, %4, 0;"
+      : "+r"(acc[0]), "+r"(acc[1]), "+r"(acc[2]), "+r"(acc[3]), "+r"(acc[4])
+      : "r"(x[0]), "r"(x[2]), "r"(b));
+}
+
+template <>
+__device__ __forceinline__ void sqr_row<3>(uint32_t* acc, const uint32_t* x, uint32_t b) {
+  asm("mad.lo.cc.u32 %0, %7, %10, %0;\n\t"
+      "madc.hi.cc.u32 %1, %7, %10, %1;\n\t"
+      "madc.lo.cc.u32 %2, %8, %10, %2;\n\t"
+      "madc.hi.cc.u32 %3, %8, %10, %3;\n\t"
+      "madc.lo.cc.u32 %4, %9, %10, %4;\n\t"
+      "madc.hi.cc.u32 %5, %9, %10, %5;\n\t"
+      "addc.u32 %6, %6, 0;"
+      : "+r"(acc[0]), "+r"(acc[1]), "+r"(acc[2]), "+r"(acc[3]), "+r"(acc[4]), "+r"(acc[5]), "+r"(acc[6])
+      : "r"(x[0]), "r"(x[2]), "r"(x[4]), "r"(b));
+}
+
+__device__ __forceinline__ void fr_sqr(FrE& r, const FrE& x) {
+  const uint32_t* a = x.w;
+  uint32_t p[16], q[16];
+#pragma unroll
+  for (int k = 0; k < 16; k++) p[k] = q[k] = 0;
+  // row 0: the products alone, a0 a_j at j (q: j odd, p: j even)
+#pragma unroll
+  for (int j = 1; j < 8; j++) {
+    uint32_t* acc = j & 1 ? q : p;
+    acc[j] = a[0] * a[j];
+    acc[j + 1] = __umulhi(a[0], a[j]);
+  }
+  // rows 1 .. 6: row i's chains of (8 - i) / 2 and (7 - i) / 2 products
+  sqr_row<3>(q + 3, a + 2, a[1]);
+  sqr_row<3>(p + 4, a + 3, a[1]);
+  sqr_row<3>(q + 5, a + 3, a[2]);
+  sqr_row<2>(p + 6, a + 4, a[2]);
+  sqr_row<2>(q + 7, a + 4, a[3]);
+  sqr_row<2>(p + 8, a + 5, a[3]);
+  sqr_row<2>(q + 9, a + 5, a[4]);
+  sqr_row<1>(p + 10, a + 6, a[4]);
+  sqr_row<1>(q + 11, a + 6, a[5]);
+  sqr_row<1>(p + 12, a + 7, a[5]);
+  sqr_row<1>(q + 13, a + 7, a[6]);
+  // q = p + q: the cross products' sum, below 2^509 (p holds words 2 .. 14)
+  asm("add.cc.u32 %0, %0, %14;\n\t"
+      "addc.cc.u32 %1, %1, %15;\n\t"
+      "addc.cc.u32 %2, %2, %16;\n\t"
+      "addc.cc.u32 %3, %3, %17;\n\t"
+      "addc.cc.u32 %4, %4, %18;\n\t"
+      "addc.cc.u32 %5, %5, %19;\n\t"
+      "addc.cc.u32 %6, %6, %20;\n\t"
+      "addc.cc.u32 %7, %7, %21;\n\t"
+      "addc.cc.u32 %8, %8, %22;\n\t"
+      "addc.cc.u32 %9, %9, %23;\n\t"
+      "addc.cc.u32 %10, %10, %24;\n\t"
+      "addc.cc.u32 %11, %11, %25;\n\t"
+      "addc.cc.u32 %12, %12, %26;\n\t"
+      "addc.u32 %13, %13, 0;"
+      : "+r"(q[2]), "+r"(q[3]), "+r"(q[4]), "+r"(q[5]), "+r"(q[6]), "+r"(q[7]), "+r"(q[8]), "+r"(q[9]),
+        "+r"(q[10]), "+r"(q[11]), "+r"(q[12]), "+r"(q[13]), "+r"(q[14]), "+r"(q[15])
+      : "r"(p[2]), "r"(p[3]), "r"(p[4]), "r"(p[5]), "r"(p[6]), "r"(p[7]), "r"(p[8]), "r"(p[9]), "r"(p[10]),
+        "r"(p[11]), "r"(p[12]), "r"(p[13]), "r"(p[14]));
+  // T = 2 q + the squares a_i^2 at 2i
+  uint32_t t[16];
+  t[0] = a[0] * a[0];
+  t[1] = q[1] << 1;
+#pragma unroll
+  for (int k = 2; k < 16; k++) t[k] = __funnelshift_l(q[k - 1], q[k], 1);
+  asm("mad.hi.cc.u32 %0, %15, %15, %0;\n\t"
+      "madc.lo.cc.u32 %1, %16, %16, %1;\n\t"
+      "madc.hi.cc.u32 %2, %16, %16, %2;\n\t"
+      "madc.lo.cc.u32 %3, %17, %17, %3;\n\t"
+      "madc.hi.cc.u32 %4, %17, %17, %4;\n\t"
+      "madc.lo.cc.u32 %5, %18, %18, %5;\n\t"
+      "madc.hi.cc.u32 %6, %18, %18, %6;\n\t"
+      "madc.lo.cc.u32 %7, %19, %19, %7;\n\t"
+      "madc.hi.cc.u32 %8, %19, %19, %8;\n\t"
+      "madc.lo.cc.u32 %9, %20, %20, %9;\n\t"
+      "madc.hi.cc.u32 %10, %20, %20, %10;\n\t"
+      "madc.lo.cc.u32 %11, %21, %21, %11;\n\t"
+      "madc.hi.cc.u32 %12, %21, %21, %12;\n\t"
+      "madc.lo.cc.u32 %13, %22, %22, %13;\n\t"
+      "madc.hi.u32 %14, %22, %22, %14;"
+      : "+r"(t[1]), "+r"(t[2]), "+r"(t[3]), "+r"(t[4]), "+r"(t[5]), "+r"(t[6]), "+r"(t[7]), "+r"(t[8]),
+        "+r"(t[9]), "+r"(t[10]), "+r"(t[11]), "+r"(t[12]), "+r"(t[13]), "+r"(t[14]), "+r"(t[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(a[4]), "r"(a[5]), "r"(a[6]), "r"(a[7]));
+  // (T_lo + M N) / R by fr_mul's reduction rows
+  uint32_t e[9], o[9];
+#pragma unroll
+  for (int k = 0; k < 8; k++) e[k] = t[k];
+  e[8] = 0;
+#pragma unroll
+  for (int k = 0; k < 9; k++) o[k] = 0;
+  fr_reduce_row(e, o, 0u);
+#pragma unroll
+  for (int i = 1; i < 8; i++) {
+    // the value / 2^32: E = [O0 + E1, O1 .. O7, 0], O = [E2 .. E8, O8, 0], the carry of O0 + E1 as c
+    uint32_t E0, c;
+    asm("add.cc.u32 %0, %2, %3;\n\t"
+        "addc.u32 %1, 0, 0;"
+        : "=&r"(E0), "=r"(c)
+        : "r"(o[0]), "r"(e[1]));
+    uint32_t E[9], O[9];
+    E[0] = E0;
+#pragma unroll
+    for (int k = 1; k < 8; k++) E[k] = o[k];
+    E[8] = 0;
+#pragma unroll
+    for (int k = 0; k < 7; k++) O[k] = e[k + 2];
+    O[7] = o[8];
+    O[8] = 0;
+#pragma unroll
+    for (int k = 0; k < 9; k++) {
+      e[k] = E[k];
+      o[k] = O[k];
+    }
+    fr_reduce_row(e, o, c);
+  }
+  // u = E / 2^32 + O + T_hi, below 2N
+  uint32_t u[8];
+  fr_shift_sum(u, e, o);
+  asm("add.cc.u32 %0, %0, %8;\n\t"
+      "addc.cc.u32 %1, %1, %9;\n\t"
+      "addc.cc.u32 %2, %2, %10;\n\t"
+      "addc.cc.u32 %3, %3, %11;\n\t"
+      "addc.cc.u32 %4, %4, %12;\n\t"
+      "addc.cc.u32 %5, %5, %13;\n\t"
+      "addc.cc.u32 %6, %6, %14;\n\t"
+      "addc.u32 %7, %7, %15;"
+      : "+r"(u[0]), "+r"(u[1]), "+r"(u[2]), "+r"(u[3]), "+r"(u[4]), "+r"(u[5]), "+r"(u[6]), "+r"(u[7])
+      : "r"(t[8]), "r"(t[9]), "r"(t[10]), "r"(t[11]), "r"(t[12]), "r"(t[13]), "r"(t[14]), "r"(t[15]));
+  fr_reduce(r, u);
 }
 
 // r = a + s b, s = -1 where neg, over canonical elements: a + b, or a + (N - b)
@@ -562,41 +744,90 @@ __device__ __forceinline__ void fr_one(FrE& r) {
   for (int j = 0; j < Fr::W; j++) r.w[j] = Fr::one(j);
 }
 
+// w = a^((t - 1) / 2) by fixed 4-bit windows, most significant first: w
+// starts as a^d0, then each digit d takes four squarings and, where d != 0, a
+// product by a^d from a table of a^1 .. a^15 (kernels/jubjub.py's
+// SQRT_DIGITS; a test holds the two equal). The exponent is a constant, so
+// skipping the zero digits leaks nothing. 14 products for the table, 220
+// squarings and 50 products: 284, against 354 bit by bit.
+constexpr int SQRT_WINDOW = 4;
+constexpr int SQRT_NDIGITS = 56;
+constexpr int SQRT_TABLE = (1 << SQRT_WINDOW) - 1;
+__constant__ int SQRT_DIGITS[SQRT_NDIGITS] = {
+    3, 9, 15, 6, 13, 3, 10, 9, 9, 4, 12, 14, 11, 14, 10, 4, 1, 9, 9, 12, 14, 12, 0, 4, 0, 4, 13, 0,
+    14, 12, 0, 2, 10, 9, 13, 14, 13, 2, 0, 1, 7, 15, 15, 15, 2, 13, 15, 15, 7, 15, 15, 15, 15, 15,
+    15, 15};
+
+// Threads a block, one a row: 32 and 64 measured the same as 128 (PERF.md).
+// A group of 2 or 4 threads a row that shared each product by shuffles
+// (CGBN's threads per instance) was 4-7x slower and is gone.
+constexpr int SQRT_BLOCK = 128;
+// the table in shared memory, word j of a^k at (8 (k - 1) + j) SQRT_BLOCK + thread:
+// neighbouring threads on neighbouring banks
+constexpr int SQRT_SMEM = SQRT_TABLE * 8 * 4 * SQRT_BLOCK;
+
+__device__ __forceinline__ void tab_put(uint32_t* tab, int k, const FrE& v) {
+#pragma unroll
+  for (int j = 0; j < 8; j++) tab[(8 * (k - 1) + j) * SQRT_BLOCK] = v.w[j];
+}
+
+__device__ __forceinline__ void tab_get(FrE& v, const uint32_t* tab, int k) {
+#pragma unroll
+  for (int j = 0; j < 8; j++) v.w[j] = tab[(8 * (k - 1) + j) * SQRT_BLOCK];
+}
+
 // The ff crate's constant-time Tonelli-Shanks (sqrt_tonelli_shanks) over
-// Fr, with 2^S | r - 1: w = a^((t - 1) / 2) from the exponent's bits (most
-// significant first, from the identity, one squaring a bit and a product
-// where the bit is set, as field_jax.mont_pow_fixed walks them), x = a w,
-// b = x w, z = the 2^S-th root of unity, then for max_v = S .. 1 the inner
-// steps j = 2 .. max_v - 1 and one boundary step: the step stream of
+// Fr, with 2^S | r - 1: w = a^((t - 1) / 2) (the window walk above; the JAX
+// program and the plain version walk the exponent's bits to the same w), x =
+// a w, b = x w, z = the 2^S-th root of unity, then for max_v = S .. 1 the
+// inner steps j = 2 .. max_v - 1 and one boundary step: the step stream of
 // jubjub_jax.py:203-217, every branch a select. ok = (x^2 == a); the root
-// is some square root of a where one exists, 0 for 0. One thread a row,
-// its state in registers, rows loaded limb by limb, field.cuh's fe_mul.
-__global__ void __launch_bounds__(JUB_THREADS)
+// is some square root of a where one exists, 0 for 0. One thread a row, its
+// state in registers, the window's table in shared memory. Of its 881
+// dependent products 752 are squarings (fr_sqr), the rest fr_mul: the
+// kernel is paced by the latency of one row's chain of products (PERF.md),
+// which both shorten against fe_mul.
+__global__ void __launch_bounds__(SQRT_BLOCK)
 fr_sqrt_kernel(const int32_t* __restrict__ a_in, int32_t* __restrict__ root, int32_t* __restrict__ ok,
-               long long n, const int32_t* __restrict__ zconst, const int32_t* __restrict__ bits, int nbits,
-               int S) {
-  const long long i = (long long)blockIdx.x * JUB_THREADS + threadIdx.x;
+               long long n, const int32_t* __restrict__ zconst, int S) {
+  extern __shared__ uint32_t sqrt_table[];
+  const long long i = (long long)blockIdx.x * SQRT_BLOCK + threadIdx.x;
   if (i >= n) return;
+  uint32_t* tab = sqrt_table + threadIdx.x;
   FrE a, one, w, x, b, z, tmp, sq, t;
   load(a, a_in + i * 16);
   fr_one(one);
-  w = one;
-  for (int e = 0; e < nbits; e++) {
-    fe_mul(w, w, w);
-    if (__ldg(bits + e)) fe_mul(w, w, a);
+  tab_put(tab, 1, a);
+  fr_sqr(t, a);
+  tab_put(tab, 2, t);
+#pragma unroll 1
+  for (int k = 3; k <= SQRT_TABLE; k++) {
+    fr_mul(t, t, a);
+    tab_put(tab, k, t);
   }
-  fe_mul(x, a, w);
-  fe_mul(b, x, w);
+  tab_get(w, tab, SQRT_DIGITS[0]);
+#pragma unroll 1
+  for (int d = 1; d < SQRT_NDIGITS; d++) {
+#pragma unroll
+    for (int s = 0; s < SQRT_WINDOW; s++) fr_sqr(w, w);
+    const int k = SQRT_DIGITS[d];
+    if (k) {
+      tab_get(t, tab, k);
+      fr_mul(w, w, t);
+    }
+  }
+  fr_mul(x, a, w);
+  fr_mul(b, x, w);
   load(z, zconst);
   int v = S, k = 1;
   bool jltv = true;
-  fe_mul(tmp, b, b);
+  fr_sqr(tmp, b);
   for (int max_v = S; max_v >= 1; max_v--) {
     for (int j = 2; j < max_v; j++) {
       // inner step
       const bool tmp_is_one = fr_eq(tmp, one);
       fr_sel(t, tmp_is_one, z, tmp);
-      fe_mul(sq, t, t);
+      fr_sqr(sq, t);
       const bool jltv_i = jltv && j != v;
       k = tmp_is_one ? k : j;
       // new_z = tmp_is_one ? sq : z, kept where jltv_i
@@ -606,29 +837,36 @@ fr_sqrt_kernel(const int32_t* __restrict__ a_in, int32_t* __restrict__ root, int
     }
     // boundary step: x, z, b, v, then the next run's k, tmp, jltv
     const bool b_is_one = fr_eq(b, one);
-    fe_mul(t, x, z);
+    fr_mul(t, x, z);
     fr_sel(x, b_is_one, x, t);
-    fe_mul(z, z, z);
-    fe_mul(b, b, z);
+    fr_sqr(z, z);
+    fr_mul(b, b, z);
     v = k;
     k = 1;
-    fe_mul(tmp, b, b);
+    fr_sqr(tmp, b);
     jltv = true;
   }
-  fe_mul(sq, x, x);
+  fr_sqr(sq, x);
   store(root + i * 16, x);
   ok[i] = fr_eq(sq, a) ? 1 : 0;
 }
 
 #ifdef MASP_JUBJUB_PROBE
 // A measurement build's kernels (chip_smoke.py counts their SASS): one Fr
-// product a thread, the carry-chain fr_mul and field.cuh's fe_mul<Fr>, each
-// between the same loads and stores. Never launched.
+// product a thread, the carry-chain fr_mul and fr_sqr and field.cuh's
+// fe_mul<Fr>, each between the same loads and stores. Never launched.
 __global__ void probe_fr_mul(const uint32_t* __restrict__ in, uint32_t* __restrict__ out) {
   FrE a, b, r;
   lds8(a, in + 16 * threadIdx.x);
   lds8(b, in + 16 * threadIdx.x + 8);
   fr_mul(r, a, b);
+  sts8(out + 8 * threadIdx.x, r);
+}
+
+__global__ void probe_fr_sqr(const uint32_t* __restrict__ in, uint32_t* __restrict__ out) {
+  FrE a, r;
+  lds8(a, in + 16 * threadIdx.x);
+  fr_sqr(r, a);
   sts8(out + 8 * threadIdx.x, r);
 }
 
@@ -670,12 +908,18 @@ extern "C" int masp_pedersen_fold(const int32_t* table, const int32_t* idx, int3
 }
 
 // a, root: n contiguous rows of 16 limbs; ok: n int32; z: the root of
-// unity's 16 limbs; bits: nbits int32 0/1, most significant first; S: the
-// 2-adicity of r - 1
-extern "C" int masp_fr_sqrt(const int32_t* a, int32_t* root, int32_t* ok, long long n, const int32_t* z,
-                            const int32_t* bits, int nbits, int S, void* stream) {
+// unity's 16 limbs; S: the 2-adicity of r - 1
+extern "C" int masp_fr_sqrt(const int32_t* a, int32_t* root, int32_t* ok, long long n, const int32_t* z, int S,
+                            void* stream) {
+  static bool smem_set = false;  // set on the first launch, before any graph capture
   if (int err = check_launch(n)) return err;
-  const unsigned blocks = (unsigned)((n + JUB_THREADS - 1) / JUB_THREADS);
-  fr_sqrt_kernel<<<blocks, JUB_THREADS, 0, (cudaStream_t)stream>>>(a, root, ok, n, z, bits, nbits, S);
+  if (!smem_set) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(fr_sqrt_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SQRT_SMEM);
+    if (err != cudaSuccess) return (int)err;
+    smem_set = true;
+  }
+  const unsigned blocks = (unsigned)((n + SQRT_BLOCK - 1) / SQRT_BLOCK);
+  fr_sqrt_kernel<<<blocks, SQRT_BLOCK, SQRT_SMEM, (cudaStream_t)stream>>>(a, root, ok, n, z, S);
   return (int)cudaGetLastError();
 }

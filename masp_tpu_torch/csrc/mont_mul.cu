@@ -19,7 +19,8 @@
 // contiguous tensor before each launch. So each warp of a 128-thread block,
 // one product a lane, stages its 32 rows of both operands in shared memory
 // with 16-byte loads on consecutive chunks (packed to 32-bit words, an odd
-// row stride in words so that the lanes' row reads hit 32 banks), multiplies
+// row stride in words so that the lanes' row reads hit 32 banks: field.cuh's
+// staging helpers, which mont_mul_mxu.cu shares), multiplies
 // from registers, and writes the result back through shared memory with
 // 16-byte stores on consecutive chunks; it waits for itself only. Each
 // operand is read where it lies, through a two-level row map: row i starts
@@ -41,13 +42,8 @@ struct RowMap {
 };
 
 template <class F>
-struct MontRows {
-  static constexpr int W = F::W;
-  static constexpr int L = 2 * W;
-  static constexpr int ROWS = 128;          // products a block, one a thread
-  static constexpr int CHUNKS = L / 4;      // 16-byte chunks a row: 4 (Fr), 6 (Fq)
-  static constexpr int STRIDE = W + 1;      // words a staged row: odd (9, 13)
-  static constexpr int AREA = 32 * STRIDE;  // one operand's rows of one warp
+struct MontRows : Staging<F> {
+  static constexpr int ROWS = 128;  // products a block, one a thread
 };
 
 // row i's int32 offset from the map's base; i < 2^31 and inner <= n
@@ -55,41 +51,6 @@ __device__ __forceinline__ long long row_offset(const RowMap& m, long long i) {
   const unsigned inner = (unsigned)m.inner;
   const unsigned q = (unsigned)i / inner, r = (unsigned)i - q * inner;
   return (long long)q * m.s_outer + (long long)r * m.s_inner;
-}
-
-// the lane's CHUNKS loads of its warp's 32 rows of one operand (chunk c =
-// lane + 32 k: row c / CHUNKS, whose offset that row's lane holds in off),
-// all issued before any is used
-template <class F, bool VEC>
-__device__ __forceinline__ void load_chunks(int4 (&v)[MontRows<F>::CHUNKS], const int32_t* base,
-                                            long long off, int lane) {
-  using M = MontRows<F>;
-#pragma unroll
-  for (int k = 0; k < M::CHUNKS; k++) {
-    const int c = lane + 32 * k;
-    const int32_t* src = base + __shfl_sync(0xffffffffu, off, c / M::CHUNKS) + 4 * (c % M::CHUNKS);
-    if (VEC) {
-      v[k] = __ldg(reinterpret_cast<const int4*>(src));
-    } else {
-      v[k] = make_int4(__ldg(src), __ldg(src + 1), __ldg(src + 2), __ldg(src + 3));
-    }
-  }
-}
-
-// the loaded chunks as packed words into the warp's staging area; rows past n as 0
-template <class F>
-__device__ __forceinline__ void stage_chunks(uint32_t* area, const int4 (&v)[MontRows<F>::CHUNKS],
-                                             long long live, int lane) {
-  using M = MontRows<F>;
-#pragma unroll
-  for (int k = 0; k < M::CHUNKS; k++) {
-    const int c = lane + 32 * k;
-    const int r = c / M::CHUNKS;
-    const uint32_t keep = r < live ? ~0u : 0u;
-    uint32_t* d = area + r * M::STRIDE + 2 * (c % M::CHUNKS);
-    d[0] = ((uint32_t)v[k].x | ((uint32_t)v[k].y << 16)) & keep;
-    d[1] = ((uint32_t)v[k].z | ((uint32_t)v[k].w << 16)) & keep;
-  }
 }
 
 // Each warp stages, multiplies and writes its own 32 rows, so it waits for
@@ -138,18 +99,7 @@ mont_mul_kernel(RowMap a, RowMap b, int32_t* __restrict__ out, long long n, int 
   }
   __syncwarp();
 
-  // the warp's output rows are consecutive: 16 bytes a lane, in order
-#pragma unroll
-  for (int k = 0; k < M::CHUNKS; k++) {
-    const int c = lane + 32 * k;
-    const int r = c / M::CHUNKS;
-    if (r < live) {
-      const uint32_t* s = A + r * M::STRIDE + 2 * (c % M::CHUNKS);
-      const int4 v = make_int4((int)(s[0] & 0xffffu), (int)(s[0] >> 16),
-                               (int)(s[1] & 0xffffu), (int)(s[1] >> 16));
-      *reinterpret_cast<int4*>(out + first * M::L + 4 * (long long)c) = v;
-    }
-  }
+  store_chunks<F>(out + first * M::L, A, live, lane);
 }
 
 // 16-byte loads need a 16-byte aligned base and strides that are multiples of 4 int32

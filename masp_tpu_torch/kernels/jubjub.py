@@ -20,7 +20,9 @@ The add and the fold kernels give each pair (hash) a group of threads that
 share the formula's products in layers: the schedules ``ADD_*`` (the
 complete add) and ``FOLD_*`` (the fold's step, the mixed add of a table
 entry with Z = 1) below, which the CUDA source holds too. The fold kernel
-reads its table in its own layout, ``fold_table``.
+reads its table in its own layout, ``fold_table``. The square-root kernel
+walks its exponent by fixed windows, ``SQRT_DIGITS``, which the CUDA source
+holds too; the plain version walks the bits, to the same value.
 """
 
 from __future__ import annotations
@@ -67,6 +69,27 @@ def sqrt_exponent_bits() -> list[int]:
     return [int(b) for b in bin((T_ODD - 1) // 2)[2:]]
 
 
+# The kernel's walk of w = a^((t - 1) / 2): fixed windows of SQRT_WINDOW
+# bits, most significant first (the first digit takes the bits left over).
+# w starts as a^d0; each later digit takes SQRT_WINDOW squarings and, where
+# it is not 0, a product by a^d from a table of a^1 .. a^(2^SQRT_WINDOW - 1).
+# csrc/jubjub.cu holds the same digits.
+SQRT_WINDOW = 4
+
+
+def sqrt_window_digits() -> list[int]:
+    """The digits of (t - 1) / 2 in base 2^SQRT_WINDOW, most significant
+    first."""
+    e, digits = (T_ODD - 1) // 2, []
+    while e:
+        digits.append(e & ((1 << SQRT_WINDOW) - 1))
+        e >>= SQRT_WINDOW
+    return digits[::-1]
+
+
+SQRT_DIGITS = tuple(sqrt_window_digits())
+
+
 def sqrt_schedule() -> list[int]:
     """The step stream of the constant-time Tonelli-Shanks: for max_v = S
     .. 1 the inner steps j = 2 .. max_v - 1, then a boundary step (0)."""
@@ -78,15 +101,10 @@ def sqrt_schedule() -> list[int]:
 
 
 def constant(name: str, device) -> torch.Tensor:
-    """The kernels' constants on ``device``, made once: d, the root of unity
-    (16 limbs each) and the exponent's bits."""
+    """The kernels' constants on ``device``, made once: d ("d") and the root
+    of unity ("z"), 16 Montgomery limbs each."""
     def build():
-        if name == "d":
-            arr = D_MONT
-        elif name == "z":
-            arr = F.encode(FR, [root_of_unity()])[0]
-        else:
-            arr = np.asarray(sqrt_exponent_bits())
+        arr = D_MONT if name == "d" else F.encode(FR, [root_of_unity()])[0]
         return torch.as_tensor(np.asarray(arr).astype(np.int32), device=device)
 
     return device_const(("jubjub", name, torch.device(device)), build)
@@ -279,8 +297,7 @@ def _c_fn(name: str):
         "jubjub_add": [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_longlong,
                        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p],
         "pedersen_fold": [ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 2 + [ctypes.c_void_p],
-        "fr_sqrt": [ctypes.c_void_p] * 3 + [ctypes.c_longlong] + [ctypes.c_void_p] * 2
-        + [ctypes.c_int] * 2 + [ctypes.c_void_p],
+        "fr_sqrt": [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p],
     }[name]
     fn.restype = ctypes.c_int
     return fn
@@ -360,14 +377,13 @@ def fr_sqrt(a):
     root = torch.empty_like(a)
     ok = torch.empty(n, dtype=torch.int32, device=a.device)
     if n:
-        bits = constant("bits", a.device)
-        _launch("fr_sqrt", a, a.data_ptr(), root.data_ptr(), ok.data_ptr(), n, constant("z", a.device).data_ptr(),
-                bits.data_ptr(), bits.shape[0], S)
+        _launch("fr_sqrt", a, a.data_ptr(), root.data_ptr(), ok.data_ptr(), n, constant("z", a.device).data_ptr(), S)
     return root, ok != 0
 
 
 __all__ = [
     "jubjub_add", "jubjub_add_plain", "pedersen_fold", "pedersen_fold_plain", "fr_sqrt", "fr_sqrt_plain",
     "edwards_add", "identity_rows", "constant", "root_of_unity", "sqrt_exponent_bits", "sqrt_schedule", "D_MONT", "S",
+    "SQRT_WINDOW", "SQRT_DIGITS", "sqrt_window_digits",
     "fold_table", "ADD_LAYERS", "FOLD_LAYERS", "ADD_NS", "FOLD_NS", "ADD_OUT", "FOLD_ENTRY", "NONE",
 ]

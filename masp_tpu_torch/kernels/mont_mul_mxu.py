@@ -137,18 +137,31 @@ def mont_mul_mxu_plain(spec, a, b):
 
 # --- the CUDA kernel's wrapper ---------------------------------------------------
 
+def band_blocks(rows: int) -> list[tuple[int, int]]:
+    """The (m-tile, k step) blocks of 16 rows and 32 byte columns that the
+    band of a (rows, 48) Toeplitz matrix (A[k][i] != 0 only for 0 <= k - i
+    <= 47) meets, the depth padded to 64: the blocks the kernel multiplies,
+    in its order (csrc/mont_mul_mxu.cu's band and block_index)."""
+    return [(mt, ks) for mt in range(rows // 16) for ks in range(2)
+            if 32 * ks <= 16 * mt + 15 and 16 * mt <= min(32 * ks + 31, 47) + 47]
+
+
 def fragments(A: np.ndarray) -> np.ndarray:
-    """mma.sync m16n8k16 A fragments of a (16 MT, 48) uint8 matrix, as the
-    kernel reads them: uint32 (MT, 3, 32, 2), [m-tile, k step, lane, reg].
-    Lane l = 4 g + t holds bytes 16 s + 4 t .. + 3 of row 16 mt + g (reg 0)
-    and of row 16 mt + g + 8 (reg 1), little-endian in each word."""
+    """mma.sync m16n8k32 A fragments of a (16 MT, 48) uint8 matrix, its
+    depth zero-padded to 64, as the kernel reads them: uint32 (blocks, 32,
+    4), [block of band_blocks, lane, reg]. Lane l = 4 g + t of block (mt,
+    ks) holds bytes 32 ks + 4 t .. + 3 of row 16 mt + g (reg 0) and of row
+    16 mt + g + 8 (reg 1), and bytes 32 ks + 16 + 4 t .. + 3 of the same
+    rows (regs 2, 3), little-endian in each word."""
     rows, depth = A.shape
-    words = np.ascontiguousarray(A.astype(np.uint8)).view("<u4").reshape(rows, depth // 4)
-    mt = np.arange(rows // 16)[:, None, None, None]
-    s = np.arange(depth // 16)[None, :, None, None]
-    lane = np.arange(32)[None, None, :, None]
-    reg = np.arange(2)[None, None, None, :]
-    return words[16 * mt + lane // 4 + 8 * reg, 4 * s + lane % 4]
+    padded = np.zeros((rows, 64), dtype=np.uint8)
+    padded[:, :depth] = A.astype(np.uint8)
+    words = padded.view("<u4").reshape(rows, 16)
+    blocks = np.array(band_blocks(rows))
+    mt, ks = blocks[:, 0, None, None], blocks[:, 1, None, None]
+    lane = np.arange(32)[None, :, None]
+    reg = np.arange(4)[None, None, :]
+    return words[16 * mt + lane // 4 + 8 * (reg % 2), 8 * ks + lane % 4 + 4 * (reg // 2)]
 
 
 def unsigned_toeplitz(consts: dict) -> tuple[np.ndarray, np.ndarray]:
@@ -206,5 +219,5 @@ def mont_mul_mxu(spec, a, b):
     return out
 
 
-__all__ = ["mxu_consts", "mont_mul_mxu", "mont_mul_mxu_plain", "fragments", "unsigned_toeplitz",
+__all__ = ["mxu_consts", "mont_mul_mxu", "mont_mul_mxu_plain", "fragments", "band_blocks", "unsigned_toeplitz",
            "CONST_KEYS"]

@@ -1,17 +1,24 @@
 #!/usr/bin/env python3
-"""Times the Jubjub add and the Pedersen fold kernels of the masp_tpu_torch
-package that Python imports, and the parts of the Jubjub path they pace.
+"""Times the Jubjub add, the Pedersen fold and the Fr square-root kernels of
+the masp_tpu_torch package that Python imports, and the parts of the Jubjub
+path they pace.
 
 - The kernels at the widths the Jubjub path launches them at, each launch
   inside a CUDA graph: the add on the 8 pairs of every addition case and on
   32 pairs with inputs in L2, and on 2^16 pairs from HBM; the fold over the
   Merkle hash's 172 chunks at 64, 1,024, 4,096 and 32,768 hashes (the table
-  in L2, the digits from HBM from 4,096 hashes up). Each kernel is first held
-  against its plain version at its narrowest width.
+  in L2, the digits from HBM from 4,096 hashes up); the square root at 2^12
+  rows (from HBM) and at the widths the path launches it at (256 for a
+  signature batch's R encodings, 4,102 for the decompressions). Each kernel
+  is first held against its plain version at its narrowest width.
 - The path, on the host clock, median of REPS runs: a FrozenCommitmentTree of
   2^16 seeded leaves (the whole build, and its device levels, 32,768 down to
   64 pairs, summed) and the batch verification of 256 RedJubjub signatures
-  on the card.
+  on the card. Beside the signatures' wall time, the main thread's CPU time
+  of each run ("sigs_thread_cpu"), and the kernels' device time and count in
+  one more run under torch.profiler ("sigs_device": the device time and
+  count of its kernels and copies): what of the wall time the host's own
+  work and the card take.
 - Where the package's jubjub.cu takes MASP_JUBJUB_GROUP / MASP_JUBJUB_BLOCK
   (threads a pair, threads a block), the add and the fold built at each of
   SHAPES, each held against the plain versions, then timed as above at 8,
@@ -52,6 +59,9 @@ SIGS = 256
 REPS = 5
 # (threads a pair, threads a block); jubjub.cu keeps the first
 SHAPES = ((4, 128), (2, 128), (4, 64), (4, 256))
+# the square root's rows: the check width, then the widths it is timed at
+SQRT_CHECK = 256
+SQRT_WIDTHS = (256, 4102, 1 << 12)
 SEED = 20261018
 
 
@@ -109,10 +119,26 @@ def kernel_times(add, fold, inputs, add_widths=ADD_WIDTHS, fold_widths=FOLD_WIDT
     return res
 
 
+def sqrt_times(sqrt, a) -> dict:
+    """sqrt held against the plain version on the first SQRT_CHECK rows of
+    a, then ms per launch at each
+    of SQRT_WIDTHS rows, inputs from HBM from 4,096 rows up (below, 34-540 KB
+    in L2: the kernel reads each row once, the time is the products')."""
+    from masp_tpu_torch.kernels import jubjub as KJ
+
+    root, ok = sqrt(a[:SQRT_CHECK])
+    want_root, want_ok = KJ.fr_sqrt_plain(a[:SQRT_CHECK])
+    _equal("fr_sqrt", root, want_root)
+    _equal("fr_sqrt (flags)", ok, want_ok)
+    return {w: timed(sqrt, (a[:w].contiguous(),), w * (2 * 16 + 1) * 4, from_hbm=w >= 4096) for w in SQRT_WIDTHS}
+
+
 def path_times(rng) -> dict:
     """Seconds, median of REPS runs: the 2^16-leaf tree, its device levels
-    summed, and batch_verify of SIGS signatures on the card (true); after one
-    warm-up run of each."""
+    summed, and batch_verify of SIGS signatures on the card (true), with the
+    main thread's CPU seconds of each signature run; after one warm-up run of
+    each. Then one more signature run under torch.profiler: the device ms and
+    count of its kernels and copies."""
     from masp_tpu_torch.host.fields import SCALAR_MODULUS, JubjubFr
     from masp_tpu_torch.host.primitives import redjubjub as RJ
     from masp_tpu_torch.host.primitives.constants import spending_key_generator
@@ -154,13 +180,24 @@ def path_times(rng) -> dict:
             device.append(levels[-1])
     finally:
         PED.batch_merkle_hash = twin
-    for _ in range(REPS + 1):
-        t0 = time.perf_counter()
+    def verify():
         if not RJ.batch_verify(XorShiftRng.from_seed(bytes(range(16))), entries, g, use_device=True):
             raise AssertionError("batch_verify rejected valid signatures")
+
+    cpu = []
+    for _ in range(REPS + 1):
+        t0, c0 = time.perf_counter(), time.thread_time()
+        verify()
         sigs.append(time.perf_counter() - t0)
-    return {name: {"median": statistics.median(v[1:]), "runs": v[1:]}
-            for name, v in (("tree", tree), ("tree_device_levels", device), ("sigs", sigs))}
+        cpu.append(time.thread_time() - c0)
+    res = {name: {"median": statistics.median(v[1:]), "runs": v[1:]}
+           for name, v in (("tree", tree), ("tree_device_levels", device), ("sigs", sigs), ("sigs_thread_cpu", cpu))}
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        verify()
+        torch.cuda.synchronize()
+    ops = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]  # kernels and copies
+    res["sigs_device"] = {"ms": sum(e.time_range.elapsed_us() for e in ops) / 1e3, "ops": len(ops)}
+    return res
 
 
 def shape_defines(group: int, block: int) -> tuple[str, ...]:
@@ -208,6 +245,7 @@ def main() -> int:
     from masp_tpu_torch.host.primitives.constants import spending_key_generator
     from masp_tpu_torch.kernels import build
     from masp_tpu_torch.kernels import jubjub as KJ
+    from masp_tpu_torch.ops import field as F
     from masp_tpu_torch.ops import jubjub as J
     from masp_tpu_torch.ops import pedersen as PED
 
@@ -234,8 +272,12 @@ def main() -> int:
     table = PED._chunk_tables(CHUNKS, dev)
     idx = torch.as_tensor(rng.integers(0, 9, (CHUNKS, max(FOLD_WIDTHS)), dtype=np.int32), device=dev)
     inputs = (P8, Q8, P, Q, table, idx)
+    draw = random.Random(SEED)
+    vals = [0, 1, SCALAR_MODULUS - 1] + [draw.randrange(SCALAR_MODULUS) for _ in range(max(SQRT_WIDTHS) - 3)]
+    sqrt_rows = torch.as_tensor(F.encode(F.FR, vals).astype(np.int32), device=dev)
 
     res = kernel_times(KJ.jubjub_add, KJ.pedersen_fold, inputs)
+    res["fr_sqrt"] = sqrt_times(KJ.fr_sqrt, sqrt_rows)
     res["path_s"] = path_times(rng)
     if "MASP_JUBJUB_GROUP" in (build.CSRC / "jubjub.cu").read_text():
         build.build_all([("jubjub", shape_defines(grp, blk)) for grp, blk in SHAPES])  # one nvcc each, in parallel

@@ -5,7 +5,10 @@ small widths (1, 3, 32, 1003; the point adds, G1, G2 and Jubjub, also at
 add also on the 8 pairs of every addition case, and on unaligned rows at
 every width; the Pedersen fold also at 64 and 4,096 hashes, the tree's
 narrowest level and the timed width; the inversion also at 2, and against
-the Fermat chain and host ints) with the edge lanes first. The Montgomery product runs at each width in every operand
+the Fermat chain and host ints; the square root with the values of every
+2-adic order first; the tensor-core product with the raw rows 0, 1, q - 1
+first, also against the mont_mul kernel) with the edge lanes first. The
+Montgomery product runs at each width in every operand
 form of the main path (strided and broadcast views, read in place) and on
 unaligned rows. One case proves a tiny circuit on the card and holds the
 proof against the port's CPU proof of the same witness.
@@ -247,11 +250,23 @@ def check_int8_dot(dev, M):
 
 
 def check_mont_mul_mxu(dev, width):
-    a = _field_rows(FQ, width, 4, dev)
-    b = _field_rows(FQ, width, 5, dev).flip(0).contiguous()
+    """The tensor-core product against its plain version, mont_mul_plain and
+    the mont_mul kernel; the raw rows 0, 1 and q - 1 first (then Montgomery
+    rows of 0, 1, q - 1, ...), past which the second operand runs reversed.
+    Also on the same rows as contiguous views one int32 into their buffer
+    (not 16-byte aligned: the kernel's 4-byte staging)."""
+    raw = torch.as_tensor(np.array([[(v >> (16 * j)) & 0xFFFF for j in range(FQ.L)]
+                                    for v in (0, 1, FQ.modulus - 1)], dtype=np.int32), device=dev)
+    a = torch.cat([raw, _field_rows(FQ, width, 4, dev)])[:width].contiguous()
+    b = torch.cat([raw.flip(0), _field_rows(FQ, width, 5, dev).flip(0)])[:width].contiguous()
     got = _launched("mont_mul_mxu", lambda: MX.mont_mul_mxu(FQ, a, b))
     assert torch.equal(got, MX.mont_mul_mxu_plain(FQ, a, b))
     assert torch.equal(got, MK.mont_mul_plain(FQ, a, b))
+    assert torch.equal(got, MK.mont_mul(FQ, a, b))
+    bufs = torch.zeros((2, width * FQ.L + 1), dtype=torch.int32, device=dev)
+    bufs[0, 1:], bufs[1, 1:] = a.reshape(-1), b.reshape(-1)
+    au, bu = (bufs[i, 1:].view(width, FQ.L) for i in (0, 1))
+    assert torch.equal(_launched("mont_mul_mxu", lambda: MX.mont_mul_mxu(FQ, au, bu)), got)
 
 
 def _jubjub_rows(width, seed, dev):
@@ -295,8 +310,13 @@ def check_jubjub_add(dev, width):
 def check_fr_sqrt(dev, width):
     """The square root: roots and flags against the plain version; a root
     squares to its input exactly where the host's Euler criterion says one
-    exists."""
-    a = _field_rows(FR, width, 6, dev)
+    exists. The values of every 2-adic order come first (as many as the
+    width holds: z^(2^k) c^2 for k = 1 .. 32, non-squares, 0, 1, -1), then
+    seeded rows."""
+    import chip_smoke
+
+    edge = torch.as_tensor(F.encode(FR, chip_smoke._two_adic_values(seed=width)).astype(np.int32), device=dev)
+    a = torch.cat([edge, _field_rows(FR, width, 6, dev)])[:width].contiguous()
     root, ok = _launched("fr_sqrt", lambda: KJ.fr_sqrt(a))
     want_root, want_ok = KJ.fr_sqrt_plain(a)
     assert torch.equal(root, want_root) and torch.equal(ok, want_ok)

@@ -136,18 +136,27 @@ def test_msm_and_batch_verify_match_jax(monkeypatch):
 
 
 def test_sqrt_and_decompression_match_jax():
-    """batch_sqrt's roots and flags on 16 values (0 and 1 among them), and
-    batch_from_bytes on the JAX test's 14 items, ZIP-216 on and off."""
+    """batch_sqrt's roots and flags on 16 values (0 and 1 among them) and
+    on values of every 2-adic order, which drive each Tonelli-Shanks branch
+    (z^(2^k) c^2 for k = 1 .. 32, non-squares z^odd c^2, 0, 1 and -1:
+    chip_smoke._two_adic_values), against the JAX batch_sqrt and host
+    ints; and batch_from_bytes on the JAX test's 14 items, ZIP-216 on and
+    off."""
     import jax.numpy as jnp
 
+    import chip_smoke
+
     rng = random.Random(73)
-    vals = [rng.randrange(SCALAR_MODULUS) for _ in range(14)] + [0, 1]
+    vals = [rng.randrange(SCALAR_MODULUS) for _ in range(14)] + [0, 1] + chip_smoke._two_adic_values(seed=75)
     enc = JF.encode(JF.FR, vals)
     roots, ok = J.batch_sqrt(torch.as_tensor(enc.astype(np.int32)))
     jroots, jok = JJ.batch_sqrt(jnp.asarray(enc))
     np.testing.assert_array_equal(_limbs(roots), _limbs(jroots))
     np.testing.assert_array_equal(ok.numpy(), np.asarray(jok))
     assert ok.sum() not in (0, len(vals))
+    for v, r, k in zip(vals, JF.decode(JF.FR, _limbs(roots)), ok.tolist()):
+        assert k == (v == 0 or pow(v, (SCALAR_MODULUS - 1) // 2, SCALAR_MODULUS) == 1)
+        assert not k or r * r % SCALAR_MODULUS == v
 
     rng = random.Random(74)
     items = [_port_point(p).to_bytes() for p in _jax_points(rng, 8)]

@@ -6,8 +6,10 @@ inversion of the proof path is one launch), the adds' thread schedule on G1 and
 G2 (kernels/point_add.ADD_L1 ... ADD_OUT, and LEAF_LIN for the leaf form) on
 host ints and in the CUDA source, and the Edwards add's and the Pedersen
 fold's layers (kernels/jubjub.ADD_LAYERS, FOLD_LAYERS and fold_table) on
-host ints, against the plain versions, the host curve and the CUDA source.
-Integer arithmetic: every comparison is exact."""
+host ints, against the plain versions, the host curve and the CUDA source,
+and the square root's window walk (kernels/jubjub.SQRT_DIGITS) on host
+ints and in the CUDA source. Integer arithmetic: every comparison is
+exact."""
 
 import functools
 import os
@@ -440,7 +442,8 @@ def test_edwards_schedule_matches_cuda_source():
     """csrc/jubjub.cu holds kernels/jubjub.py's tables and slot counts, its
     two layered kernels run the layers in ADD_LAYERS' and FOLD_LAYERS'
     order, its carry-chain product's constants are Fr's modulus words, and
-    fr_sqrt_kernel keeps field.cuh's fe_mul."""
+    fr_sqrt_kernel runs the carry-chain fr_mul and fr_sqr, not field.cuh's
+    fe_mul."""
     src = (CSRC / "jubjub.cu").read_text()
     for form, names in _EDWARDS_TABLES.items():
         layers = getattr(KJ, form + "_LAYERS")
@@ -464,7 +467,67 @@ def test_edwards_schedule_matches_cuda_source():
     words = {int(k): int(v, 16) for k, v in re.findall(r"FR_W(\d) = (0x[0-9a-f]+)u", src)}
     assert sum(words[j] << (32 * j) for j in range(8)) == _RF and len(words) == 8
     sqrt = src[src.index("fr_sqrt_kernel("): src.index("#ifdef MASP_JUBJUB_PROBE")]
-    assert "fe_mul(" in sqrt and "fr_mul(" not in sqrt
+    assert "fe_mul(" not in sqrt and "fr_mul(" in sqrt and "fr_sqr(" in sqrt
+
+
+def test_sqrt_window_matches_cuda_source():
+    """csrc/jubjub.cu walks the square root's exponent by kernels/jubjub.py's
+    window and digits, from the most significant digit, which is not 0."""
+    src = (CSRC / "jubjub.cu").read_text()
+    consts = dict(re.findall(r"constexpr int (SQRT_\w+) = ([^;]+);", src))
+    assert int(consts["SQRT_WINDOW"]) == KJ.SQRT_WINDOW and int(consts["SQRT_NDIGITS"]) == len(KJ.SQRT_DIGITS)
+    body = re.search(r"__constant__ int SQRT_DIGITS\[SQRT_NDIGITS\] = \{(.*?)\};", src, re.S).group(1)
+    assert tuple(int(x) for x in re.findall(r"\d+", body)) == KJ.SQRT_DIGITS
+    assert KJ.SQRT_DIGITS[0] != 0 and all(0 <= d < 1 << KJ.SQRT_WINDOW for d in KJ.SQRT_DIGITS)
+    assert sum(d << (KJ.SQRT_WINDOW * i) for i, d in enumerate(KJ.SQRT_DIGITS[::-1])) == (KJ.T_ODD - 1) // 2
+
+
+def _window_pow(a, mul, sqr):
+    """a^((t - 1) / 2) by fr_sqrt_kernel's walk over SQRT_DIGITS: the table
+    a^1 .. a^15, w = a^d0, then four squarings and, where d != 0, a product
+    by a^d for each later digit."""
+    table = [None, a, sqr(a)]
+    for _ in range(3, 1 << KJ.SQRT_WINDOW):
+        table.append(mul(table[-1], a))
+    w = table[KJ.SQRT_DIGITS[0]]
+    for d in KJ.SQRT_DIGITS[1:]:
+        for _ in range(KJ.SQRT_WINDOW):
+            w = sqr(w)
+        if d:
+            w = mul(w, table[d])
+    return w
+
+
+def test_sqrt_window_walk_on_host_ints():
+    """The window walk gives a^((t - 1) / 2) on host ints for 0, 1, -1, the
+    values of every 2-adic order and seeded values; its squarings and
+    products, with the Tonelli-Shanks steps', are chip_smoke's count of the
+    kernel's products (881, the bound's), 70 fewer than the bit-by-bit
+    walk's 951."""
+    import chip_smoke
+
+    r, e = KJ._R, (KJ.T_ODD - 1) // 2
+    count = {"sqr": 0, "mul": 0}
+
+    def sqr(x):
+        count["sqr"] += 1
+        return x * x % r
+
+    def mul(x, y):
+        count["mul"] += 1
+        return x * y % r
+
+    vals = chip_smoke._two_adic_values(seed=5) + [random.Random(6).randrange(r) for _ in range(8)]
+    for a in vals:
+        assert _window_pow(a, mul, sqr) == pow(a, e, r)
+    walk = {k: v // len(vals) for k, v in count.items()}
+    assert walk == {"sqr": 1 + KJ.SQRT_WINDOW * (len(KJ.SQRT_DIGITS) - 1),
+                    "mul": (1 << KJ.SQRT_WINDOW) - 3 + sum(1 for d in KJ.SQRT_DIGITS[1:] if d)}
+    steps = KJ.sqrt_schedule()
+    inner, bounds = sum(1 for j in steps if j), sum(1 for j in steps if not j)
+    assert chip_smoke._sqrt_products() == (walk["sqr"] + 1 + inner + 2 * bounds + 1, walk["mul"] + 2 + 2 * bounds)
+    assert sum(chip_smoke._sqrt_products()) == 881
+    assert chip_smoke._sqrt_products_bitwise() == 951 == sum(chip_smoke._sqrt_products()) + 70
 
 
 def _cuda_words(src, name):

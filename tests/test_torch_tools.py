@@ -138,8 +138,10 @@ def test_mxu_consts_match_the_tool(jax_exp):
 
 def test_kernel_fragments_hold_the_unsigned_toeplitz_bytes():
     """The kernel's u8 matrices give the reference's lazy columns, and its
-    mma.sync A fragments (lane 4g + t: bytes 16s + 4t.. of rows 16mt + g
-    and 16mt + g + 8) unpack to them."""
+    mma.sync m16n8k32 A fragments (block (mt, ks) of band_blocks, lane 4g +
+    t: bytes 32ks + 4t.. of rows 16mt + g and 16mt + g + 8, then bytes
+    32ks + 16 + 4t.. of the same rows) unpack to them, the depth padded
+    with zeros to 64; the blocks left out are zero."""
     consts = MX.mxu_consts(FQ)
     chunks = np.random.default_rng(5).integers(0, 256, (48, 40))
     for A, (m, b, c) in zip(MX.unsigned_toeplitz(consts), (("M1t", "B1", "C1"), ("M2t", "B2", "C2"))):
@@ -147,15 +149,17 @@ def test_kernel_fragments_hold_the_unsigned_toeplitz_bytes():
         recentred = M @ (chunks - 128) + 128 * (B @ (chunks - 128)) + consts[c]
         assert np.array_equal(A.astype(np.int64) @ chunks, recentred)
         frag = MX.fragments(A)
+        blocks = MX.band_blocks(A.shape[0])
+        assert frag.shape == (len(blocks), 32, 4) and len(blocks) == {48: 4, 96: 9}[A.shape[0]]
         fbytes = np.ascontiguousarray(frag.astype("<u4")).view(np.uint8).reshape(frag.shape + (4,))
-        got = np.zeros_like(A)
-        for mt in range(frag.shape[0]):
-            for s in range(3):
-                for lane in range(32):
-                    g, t = divmod(lane, 4)
-                    for reg in range(2):
-                        got[16 * mt + g + 8 * reg, 16 * s + 4 * t : 16 * s + 4 * t + 4] = fbytes[mt, s, lane, reg]
-        assert np.array_equal(got, A)
+        got = np.zeros((A.shape[0], 64), dtype=A.dtype)
+        for (mt, ks), fb in zip(blocks, fbytes):
+            for lane in range(32):
+                g, t = divmod(lane, 4)
+                for reg in range(4):
+                    col = 32 * ks + 16 * (reg // 2) + 4 * t
+                    got[16 * mt + g + 8 * (reg % 2), col : col + 4] = fb[lane, reg]
+        assert np.array_equal(got[:, :48], A) and not got[:, 48:].any()
 
 
 def test_mont_mul_mxu_plain_matches_reference_row_function(jax_exp):
