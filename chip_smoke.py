@@ -192,6 +192,12 @@ FOLD_WIDTHS = (1, 3, 32, 64, 1003, 1024, 4096, 32768)
 FOLD_TIMED = (64, 1024, 4096, 32768)
 # the build of jubjub.cu whose probe kernels hold one Fr product each
 JUBJUB_PROBE = ("MASP_JUBJUB_PROBE",)
+# the build of int8_dot.cu whose loop kernel records the SM of each CTA
+INT8_PROBE = ("MASP_INT8_PROBE",)
+# the products int8_dot_loop is held at besides R - 1 and R + 1 (R rep
+# slices): none, one, the tools' k, and 4096 and 32768, where the tools'
+# unsigned sums pass 2^31 and wrap
+INT8_LOOP_KS = (0, 1, 8, 64, 4096, 32768)
 JUBJUB_TREE_LEAVES = 1 << 16
 JUBJUB_SIGS = 256
 JUBJUB_MSM_POINTS = 1 << 10
@@ -1070,12 +1076,76 @@ def _int_mm_ms(x, w, want, nbytes):
     return _kernel_ms(torch._int_mm, (x, w), nbytes), None
 
 
+def _int8_loop_sass() -> dict:
+    """int8_dot_loop_kernel's static SASS (cuobjdump -sass): its tensor-core
+    instructions by opcode. The int8 wgmma is IGMMA; an HGMMA with RZ
+    operands is the compiler's own, none of the kernel's products. Fails
+    without IGMMA, or with IMMA (mma.sync)."""
+    from collections import Counter
+    from pathlib import Path
+
+    from masp_tpu_torch.kernels import build
+
+    tool = Path(build.nvcc_path()).parent / "cuobjdump"
+    if not tool.exists():
+        raise AssertionError(f"sass: no cuobjdump beside nvcc ({tool}): int8_dot_loop's wgmma not shown")
+    text = subprocess.run([str(tool), "-sass", str(build.lib_path("int8_dot"))], capture_output=True, text=True,
+                          timeout=120, check=True).stdout
+    found = [ins for f, ins in _sass_functions(text).items() if "int8_dot_loop_kernel" in f]
+    if len(found) != 1:
+        raise AssertionError(f"sass: {len(found)} functions of int8_dot.cu match int8_dot_loop_kernel")
+    c = Counter(op for _, op, _ in found[0])
+    r = {"instructions": sum(c.values()), **{op: c[op] for op in sorted(c) if "MMA" in op}}
+    log(f"  sass int8_dot_loop_kernel: {r['instructions']} instructions (static); tensor-core instructions "
+        f"{json.dumps({k: v for k, v in r.items() if 'MMA' in k})}")
+    if not r.get("IGMMA") or r.get("IMMA"):
+        raise AssertionError("sass: int8_dot_loop_kernel does not issue wgmma (IGMMA) alone")
+    return r
+
+
+def _int8_loop_sms(x, w, card: str) -> int:
+    """The SMs that one launch of int8_dot_loop_kernel ran on at x @ w and
+    64 products, from the INT8_PROBE build's record of each CTA's SM (that
+    build's result checked too): each CTA must have an SM of its own. A
+    measurement's build, called through its own C entry, so its launches
+    are not counted."""
+    import ctypes
+
+    import torch
+
+    from masp_tpu_torch.kernels import build
+    from masp_tpu_torch.kernels import int8_dot as I8
+
+    (M, K), N = x.shape, w.shape[1]
+    lib = build.library("int8_dot", INT8_PROBE)
+    fn = lib.masp_int8_dot_loop
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = torch.empty((M, N), dtype=torch.int32, device=x.device)
+    if fn(x.data_ptr(), w.data_ptr(), out.data_ptr(), M, K, N, 64, torch.cuda.current_stream().cuda_stream) != 0:
+        raise RuntimeError("int8_dot_loop (probe build): the launch failed")
+    _check_equal("int8_dot_loop (probe build)", out, I8.int8_dot_loop_plain(x, w, 64))
+    ctas = -(-M // I8.LOOP_TILE_M) * -(-N // I8.LOOP_TILE_N) * I8.CLUSTER
+    sms = (ctypes.c_int * ctas)()
+    if lib.masp_int8_dot_loop_smids(sms, ctas) != 0:
+        raise RuntimeError("int8_dot_loop (probe build): the SM record could not be read")
+    distinct = len(set(sms))
+    log(f"kernel int8_dot_loop SMs (probe build): one launch at ({M},{K})@({K},{N}) ran {ctas} CTAs on {distinct} "
+        f"distinct SMs (clusters of {I8.CLUSTER}), on {card}")
+    if distinct != ctas:
+        raise AssertionError(f"int8_dot_loop: {ctas} CTAs ran on {distinct} SMs; each must have one of its own")
+    return distinct
+
+
 def tools_phase(dev, rng, card) -> dict:
     """The tools' kernels against their plain versions, bit for bit (the
     tolerance is exact equality): int8_dot at the tools' (1024, 48) @ (48,
     96), on the full signed range, at a ragged (1003, 40) @ (40, 90) and
-    (1003, 37) @ (37, 90), and at K = 1 and K = 64;
-    int8_dot_loop at k = 8 and 64; mont_mul_mxu against its plain version,
+    (1003, 37) @ (37, 90), and at K = 1 and K = 64; int8_dot_loop at the
+    same five shapes, each on the tools' unsigned and the full signed range,
+    at k in INT8_LOOP_KS and R - 1, R + 1 (R rep slices), its SASS (wgmma
+    alone) and the SMs of one launch (each CTA on its own);
+    mont_mul_mxu against its plain version,
     mont_mul and mont_mul_plain at 2^17 reduced Fq rows with the edge lanes
     first (0, 1, q - 1, 2, q - 2 in Montgomery form and the raw 1) and at
     1003 rows (also as contiguous rows one int32 into their buffer, not
@@ -1110,13 +1180,26 @@ def tools_phase(dev, rng, card) -> dict:
                           ("K = 1", (x64[:, :1], w64[:1])), ("K = 64", (x64, w64))):
         p, q = p.contiguous(), q.contiguous()
         _check_equal(f"int8_dot ({label})", I8.int8_dot(p, q), I8.int8_dot_plain(p, q))
+    # the loop at the same shapes, on both ranges (the unsigned one's 32768
+    # sums wrap past 2^31)
+    u64 = torch.as_tensor(nrng.integers(0, 127, (M, 64), dtype=np.int8), device=dev)
+    v64 = torch.as_tensor(nrng.integers(0, 127, (64, N), dtype=np.int8), device=dev)
+    slices = I8.CLUSTER
+    loop_ks = sorted(set(INT8_LOOP_KS) | {slices - 1, slices + 1})
     loop_err = 0.0
-    for k in (8, 64):
-        loop_err = max(loop_err, _check_equal(f"int8_dot_loop k={k}", I8.int8_dot_loop(x, w, k),
-                                              I8.int8_dot_loop_plain(x, w, k)))
-        _check_equal(f"int8_dot_loop k={k} (signed range)", I8.int8_dot_loop(xs, ws, k),
-                     I8.int8_dot_loop_plain(xs, ws, k))
-        _check_equal(f"int8_dot_loop k={k} (ragged)", I8.int8_dot_loop(xr, wr, k), I8.int8_dot_loop_plain(xr, wr, k))
+    for rng_label, (p0, q0, p64, q64) in (("unsigned", (x, w, u64, v64)), ("signed", (xs, ws, x64, w64))):
+        for label, (p, q) in (("1024 x 48 x 96", (p0, q0)), ("1003 x 40 x 90", (p64[:1003, :40], q64[:40, :90])),
+                              ("1003 x 37 x 90", (p64[:1003, :37], q64[:37, :90])), ("K = 1", (p64[:, :1], q64[:1])),
+                              ("K = 64", (p64, q64))):
+            p, q = p.contiguous(), q.contiguous()
+            for k in loop_ks:
+                loop_err = max(loop_err, _check_equal(f"int8_dot_loop k={k} ({label}, {rng_label})",
+                                                      I8.int8_dot_loop(p, q, k), I8.int8_dot_loop_plain(p, q, k)))
+    log(f"kernel int8_dot_loop: bit-identical to int8_dot_loop_plain at k = {loop_ks} on (1024,48)@(48,96), "
+        f"(1003,40)@(40,90), (1003,37)@(37,90), K = 1 and K = 64, each on the unsigned and the signed range, "
+        f"on {card}")
+    loop_sass = _int8_loop_sass()
+    loop_sms = _int8_loop_sms(x, w, card)
     n = 1 << 17
     a, b = _field_inputs(FQ, n, rng, dev)
     mxu = MX.mont_mul_mxu(FQ, a, b)
@@ -1135,6 +1218,9 @@ def tools_phase(dev, rng, card) -> dict:
 
     dot_bytes, mxu_bytes = M * K + K * N + 4 * M * N, 3 * n * FQ.L * 4
     lib_ms, why = _int_mm_ms(x, w, plain, dot_bytes)
+    # the loop's yardstick: one product of the K-tiled operands, the sum of 64
+    xt, wt = x.repeat(1, 64), w.repeat(64, 1)
+    loop_lib_ms, loop_why = _int_mm_ms(xt, wt, I8.int8_dot_loop_plain(x, w, 64), 64 * K * (M + N) + 4 * M * N)
     out = {
         "int8_dot": {
             "n": M, "max_abs_err": err, "library_ms": lib_ms,
@@ -1144,8 +1230,10 @@ def tools_phase(dev, rng, card) -> dict:
             "ops_ms": 1e3 * M * K * N / INT8_MAC_PER_S, "bytes": dot_bytes,
         },
         "int8_dot_loop": {
-            "n": M, "max_abs_err": loop_err, "library_ms": None,
+            "n": M, "max_abs_err": loop_err, "library_ms": loop_lib_ms, "sass": loop_sass, "probe_sms": loop_sms,
+            "rep_bound_ms": 1e3 * M * K * N / INT8_MAC_PER_S,
             "ms": _kernel_ms(lambda p, q: I8.int8_dot_loop(p, q, 64), (x, w), dot_bytes),
+            "k8_ms": _kernel_ms(lambda p, q: I8.int8_dot_loop(p, q, 8), (x, w), dot_bytes),
             "eager_ms": _median_ms(lambda: I8.int8_dot_loop(x, w, 64), 10),
             "plain_ms": _median_ms(lambda: I8.int8_dot_loop_plain(x, w, 64), 3),
             "ops_ms": 1e3 * 64 * M * K * N / INT8_MAC_PER_S, "bytes": dot_bytes,
@@ -1168,8 +1256,9 @@ def tools_phase(dev, rng, card) -> dict:
             f"plain {r['plain_ms']:.3f} ms (median of 3), library {lib}, "
             f"bound {r['bound_ms']:.6f} ms ({r['bound_by']}; bytes {bytes_ms:.6f} ms, operations {ops_ms:.6f} ms "
             f"at the data sheet's {'1,979 int8 TOPS' if name.startswith('int8') else 'INT32 IMAD rate'}) on {card}")
-    if why:
-        log(f"kernel int8_dot: library_ms null: {why}")
+    for name, reason in (("int8_dot", why), ("int8_dot_loop", loop_why)):
+        if reason:
+            log(f"kernel {name}: library_ms null: {reason}")
     # the tool's question on this card: the tensor-core reductions against the integer product
     out["mont_mul_mxu"]["mont_mul_fq_ms"] = _kernel_ms(lambda p, q: MK.mont_mul(FQ, p, q), (a, b), mxu_bytes)
     log(f"kernel mont_mul_fq at the same {n} rows: {out['mont_mul_mxu']['mont_mul_fq_ms']:.4f} ms per launch in a "
@@ -1177,7 +1266,7 @@ def tools_phase(dev, rng, card) -> dict:
 
     reset_launches()
     t0 = time.perf_counter()
-    bench_kernel_micro.main("cuda", log=lambda m: log(f"[bench_kernel_micro] {m}"))
+    report = bench_kernel_micro.main("cuda", log=lambda m: log(f"[bench_kernel_micro] {m}"))
     exp_mxu_mont.main("cuda", log=lambda m: log(f"[exp_mxu_mont] {m}"))
     launches = dict(LAUNCHES)
     log(f"[tools] both tools at full size in {time.perf_counter() - t0:.1f} s; launches that ran eagerly "
@@ -1186,6 +1275,19 @@ def tools_phase(dev, rng, card) -> dict:
         if launches[name] <= 0:
             raise AssertionError(f"[tools] kernel {name} was not launched by the tools")
         out[name]["launches"] = launches[name]
+    # the loop's time a product: the tool's graph slope from 4096 to 32768
+    # products; its fixed cost: a launch of 8 products in a graph of many
+    # (the slope's constant, one launch a graph, is mostly that graph's
+    # replay floor, and is logged, not reported as the kernel's)
+    rate = report["int8_dot_loop"][(4096, 32768)]
+    loop = out["int8_dot_loop"]
+    loop["rep_ms"] = rate["graph"]
+    lib = "refused" if loop["library_ms"] is None else f"{loop['library_ms']:.4f} ms"
+    log(f"kernel int8_dot_loop: {1e6 * loop['rep_ms']:.3f} ns a product (graph slope, 4096 -> 32768) against its "
+        f"bound {1e6 * loop['rep_bound_ms']:.3f} ns ({loop['rep_bound_ms'] / loop['rep_ms']:.1%}); a launch in a "
+        f"CUDA graph of many (inputs from HBM) {loop['k8_ms']:.4f} ms at k = 8 (the fixed cost), {loop['ms']:.4f} ms "
+        f"at k = 64; the slope's constant {rate['graph_const']:.4f} ms (one launch a graph: its replay floor "
+        f"included); torch._int_mm of the K-tiled operands {lib}, on {card}")
     return out
 
 
@@ -2299,12 +2401,13 @@ def main(argv) -> int:
     log(f"card: {card}")
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, python {sys.version.split()[0]}")
     t0 = time.perf_counter()
-    variants = [("point_add", (f"MASP_G1_ADD_BLOCK={b}",)) for b in G1_BLOCKS] + [("jubjub", JUBJUB_PROBE)]
+    variants = ([("point_add", (f"MASP_G1_ADD_BLOCK={b}",)) for b in G1_BLOCKS]
+                + [("jubjub", JUBJUB_PROBE), ("int8_dot", INT8_PROBE)])
     build.build_all(variants)
     log(f"kernel build: {time.perf_counter() - t0:.1f} s (one nvcc per source and variant, in parallel)")
     for src, defines in [(s, ()) for s in build.SOURCES] + variants:
         for line in build.log_path(src, defines).read_text().splitlines():
-            if "registers" in line or "spill" in line or "Compiling entry" in line:
+            if any(t in line for t in ("registers", "spill", "Compiling entry", "Performance Loss")):
                 log(f"  ptxas {' '.join([src, *defines])}: {line.strip()}")
 
     rng = random.Random(SEED)
@@ -2407,7 +2510,13 @@ def main(argv) -> int:
     # add or a step (they run 12 or 11 of fr_mul's fewer), 951 a square root
     # (it runs 752 fr_sqr and 129 fr_mul); "path_widths_ms" fr_sqrt's ms at
     # each width the Jubjub path launches it at;
-    # "mont_mul_fq_ms" mont_mul_fq's ms on mont_mul_mxu's rows
+    # "mont_mul_fq_ms" mont_mul_fq's ms on mont_mul_mxu's rows; int8_dot_loop's
+    # "rep_ms" (ms a product: the tools' graph slope from 4096 to 32768),
+    # "rep_bound_ms" (one product's operation bound), "k8_ms" (ms a launch
+    # of 8 products, as "ms" is of 64: the fixed cost), "probe_sms" (the SMs
+    # of one launch of the -DMASP_INT8_PROBE build) and "sass" (its
+    # tensor-core instructions); its "library_ms" is torch._int_mm of the
+    # K-tiled operands
     line = {"kernels": [{
         "name": name, "route": "cuda", "source": SOURCE[name], "replaces": REPLACES[name],
         "launches": k["launches"] if name in TOOL_KERNELS else path_launches(name),
@@ -2420,7 +2529,8 @@ def main(argv) -> int:
         "bound_by": k["bound_by"], "library_ms": k.get("library_ms"), "bytes": k["bytes"],
         "ops_ms": k["ops_ms"], "ptxas": ptxas[name], "widest": k.get("widest"),
         **{key: k[key] for key in ("forms", "narrow_ms", "per_proof", "all_cases_ms", "widths_ms", "ops_ms_fe_mul",
-                                   "path_widths_ms", "mont_mul_fq_ms") if key in k},
+                                   "path_widths_ms", "mont_mul_fq_ms", "rep_ms", "rep_bound_ms", "k8_ms",
+                                   "probe_sms", "sass") if key in k},
         **({"sass": sass[name]} if name in sass else {})}
         for name, k in {**kern, **tools}.items()]}
     print(json.dumps(line))

@@ -15,7 +15,8 @@ launch. Sections:
   2. the Fq ``mont_mul`` chain x = mont_mul(x, b) at 2^17 rows, k = 8, 24;
   3. ``int8_dot`` exactness against numpy at (1024, 48) @ (48, 96);
   4. ``int8_dot_loop`` at that shape, k = 8 and 64 products in one launch
-     (and k = 4096 and 32768, which the card's event timer resolves);
+     (and k = 4096 and 32768, which the card's event timer resolves), each
+     k's result checked against k x numpy (wrapping as int32);
   5. the sorted MSM of 2^17 copies of one point (``sorted_msm_from_limbs``,
      unsigned digits) for c in {8, 10, 12, 13}, checked against the host.
      Each c runs the batch-affine ladder, as the JAX tool does on its
@@ -104,34 +105,47 @@ def graph_of(fn):
     return graph.replay
 
 
-def slope(name, make_fn, k1: int, k2: int, unit_ops: int, device, iters: int = 5, log=print) -> dict:
+def per_rep(ms: float) -> str:
+    """A time a rep, in three significant digits and a unit that reads."""
+    us = 1e3 * ms
+    if abs(us) < 1:
+        return f"{1e3 * us:.3g} ns"
+    return f"{us:.3g} us" if abs(us) < 1e3 else f"{ms:.3g} ms"
+
+
+def slope(name, make_fn, k1: int, k2: int, unit_ops: int, device, iters: int = 5, log=print,
+          keep_out: bool = False) -> dict:
     """Per-rep ms from two repetition counts of one program, (t(k2) -
     t(k1)) / (k2 - k1) over medians of ``iters``; make_fn(k) returns the
     program with k reps. On the card as one CUDA graph ("graph") and
     eagerly ("eager"), with "launch_ms" = eager - graph per rep and
     "enqueue_ms" = the host's time per rep to issue the eager program; on
-    the CPU eagerly only."""
+    the CPU eagerly only. "<mode>_const" is each mode's constant, t(k1)
+    less k1 reps. With ``keep_out``, "out" holds the last eager run's
+    result at k1 and k2."""
     modes = {"eager": make_fn}
     if device.type == "cuda":
         modes = {"graph": lambda k: graph_of(make_fn(k)), "eager": make_fn}
     res = {}
     for mode, build in modes.items():
-        t1, h1, _ = time_ms(build(k1), device, iters)
-        t2, h2, _ = time_ms(build(k2), device, iters)
+        t1, h1, out1 = time_ms(build(k1), device, iters)
+        t2, h2, out2 = time_ms(build(k2), device, iters)
         per = (t2 - t1) / (k2 - k1)
-        res[mode] = per
+        res[mode], res[f"{mode}_const"] = per, max(t1 - per * k1, 0)
+        if mode == "eager" and keep_out:
+            res["out"] = {k1: out1, k2: out2}
         if mode == "eager" and device.type == "cuda":
             res["enqueue_ms"] = (h2 - h1) / (k2 - k1)
         if t2 - t1 < RESOLVED_MS:
             rate = f"rate not resolved (t(k2) - t(k1) below {RESOLVED_MS} ms)"
         else:
             rate = f"{unit_ops / per / 1e3:.2f} M ops/s"
-        log(f"{name} [{mode}]: xK={k1} {t1:.4f} ms, xK={k2} {t2:.4f} ms -> {per:.4f} ms per rep; {rate} "
-            f"(constant ~{max(t1 - per * k1, 0):.4f} ms; median of {iters}) on {where(device)}")
+        log(f"{name} [{mode}]: xK={k1} {t1:.4f} ms, xK={k2} {t2:.4f} ms -> {per_rep(per)} per rep; {rate} "
+            f"(constant ~{res[f'{mode}_const']:.4f} ms; median of {iters}) on {where(device)}")
     if "graph" in res:
         res["launch_ms"] = res["eager"] - res["graph"]
-        log(f"{name}: eager - graph = {res['launch_ms']:.4f} ms per rep; the host takes "
-            f"{res['enqueue_ms']:.4f} ms per rep to issue it eagerly, on {where(device)}")
+        log(f"{name}: eager - graph = {per_rep(res['launch_ms'])} per rep; the host takes "
+            f"{per_rep(res['enqueue_ms'])} per rep to issue it eagerly, on {where(device)}")
     return res
 
 
@@ -201,13 +215,18 @@ def main(device="cuda", rows: int = 1 << 17, points: int = 1 << 17, cs=(8, 10, 1
 
     macs = M_ * K_ * N_
     for k1, k2 in ((8, 64), (4096, 32768)):
-        res = slope(f"int8 ({M_},{K_})@({K_},{N_}) in-kernel", make_mm, k1, k2, macs, dev, iters, log)
+        res = slope(f"int8 ({M_},{K_})@({K_},{N_}) in-kernel", make_mm, k1, k2, macs, dev, iters, log,
+                    keep_out=True)
         report.setdefault("int8_dot_loop", {})[(k1, k2)] = res
+        for k, got in res.pop("out").items():  # the timed runs' own results: no launch more
+            if not np.array_equal(got.cpu().numpy(), (k * want.astype(np.int64)).astype(np.int32)):
+                raise AssertionError(f"int8_dot_loop: WRONG RESULT, the sum of {k} products differs from {k} x numpy")
         per = res["graph" if dev.type == "cuda" else "eager"]
         if per * (k2 - k1) >= RESOLVED_MS:
             log(f"  == {macs / per / 1e6:.1f} G MACs/s at the reduction shape (k = {k1}, {k2}) on {where(dev)}")
     if not np.array_equal(I8.int8_dot_loop(x8, w8, 64).cpu().numpy(), 64 * want):
         raise AssertionError("int8_dot_loop: WRONG RESULT, the sum of 64 products differs from 64 x numpy")
+    log(f"int8_dot_loop: exact against k x numpy (int32 wrap) at every k timed on {where(dev)}")
 
     # --- 5. sorted MSM c sweep -------------------------------------------------------
     scal = rng.integers(0, 1 << 16, (points, 16), dtype=np.uint16)

@@ -7,7 +7,8 @@ every width; the Pedersen fold also at 64 and 4,096 hashes, the tree's
 narrowest level and the timed width; the inversion also at 2, and against
 the Fermat chain and host ints; the square root with the values of every
 2-adic order first; the tensor-core product with the raw rows 0, 1, q - 1
-first, also against the mont_mul kernel) with the edge lanes first. The
+first, also against the mont_mul kernel; the int8 loop at k = 0 to 32768
+on both ranges and ragged shapes) with the edge lanes first. The
 Montgomery product runs at each width in every operand
 form of the main path (strided and broadcast views, read in place) and on
 unaligned rows. One case proves a tiny circuit on the card and holds the
@@ -238,15 +239,29 @@ def check_affine_pre_post(dev, group, width):
 
 def check_int8_dot(dev, M):
     """(M, K) @ (K, 96) on the full signed range, K = 48 (the tools'), 37
-    (not a multiple of 4) and 64 (the most the kernel takes); the loop at
-    k = 8."""
+    (not a multiple of 4) and 64 (the most the kernel takes). The loop at
+    (M, K) @ (K, N) for (K, N) = (48, 96), (40, 90), (37, 90), (1, 96) and
+    (64, 96), on the tools' unsigned and the full signed range, at k = 0, 1,
+    S - 1, S + 1 (S rep slices), 8, 64, 4096 and 32768, where the unsigned
+    sums pass 2^31 and wrap. At the widest M also 4 M rows, a grid of more
+    CTAs than the card has SMs (each CTA then asks only for the shared
+    memory its tiles use)."""
     rng = np.random.default_rng(30 + M)
     for K in (48, 37, 64):
         x = torch.as_tensor(rng.integers(-128, 128, (M, K), dtype=np.int8), device=dev)
         w = torch.as_tensor(rng.integers(-128, 128, (K, 96), dtype=np.int8), device=dev)
         assert torch.equal(_launched("int8_dot", lambda: I8.int8_dot(x, w)), I8.int8_dot_plain(x, w))
-        assert torch.equal(_launched("int8_dot_loop", lambda: I8.int8_dot_loop(x, w, 8)),
-                           I8.int8_dot_loop_plain(x, w, 8))
+    slices = I8.CLUSTER
+    shapes = [(M, K, N) for K, N in ((48, 96), (40, 90), (37, 90), (1, 96), (64, 96))]
+    if M == max(WIDTHS):
+        shapes += [(4 * M, 48, 96), (4 * M, 37, 90)]
+    for rows, K, N in shapes:
+        for lo, hi in ((0, 127), (-128, 128)):
+            x = torch.as_tensor(rng.integers(lo, hi, (rows, K), dtype=np.int8), device=dev)
+            w = torch.as_tensor(rng.integers(lo, hi, (K, N), dtype=np.int8), device=dev)
+            for k in sorted({0, 1, slices - 1, slices + 1, 8, 64, 4096, 32768}):
+                got = _launched("int8_dot_loop", lambda: I8.int8_dot_loop(x, w, k))
+                assert torch.equal(got, I8.int8_dot_loop_plain(x, w, k)), (rows, K, N, lo, k)
 
 
 def check_mont_mul_mxu(dev, width):

@@ -127,6 +127,103 @@ def test_int8_dot_loop_plain_matches_jax_fori_loop(k):
     assert np.array_equal(got.numpy(), np.asarray(want))
 
 
+def _canonical_block(smem, desc, rows):
+    """A k32 block (rows x 32 bytes) as wgmma reads it through ``desc``,
+    by the PTX ISA's canonical K-major layout without swizzle: start
+    address, leading byte offset (the next core matrix along K) and stride
+    byte offset (the next 8 rows), each stored >> 4; core matrices of 8
+    rows x 16 bytes, 128 contiguous bytes each."""
+    start, lbo, sbo = ((desc >> s & 0x3FFF) << 4 for s in (0, 16, 32))
+    assert desc >> 62 == 0  # layout type: no swizzle
+    r, k = np.meshgrid(np.arange(rows), np.arange(I8.K_STEP), indexing="ij")
+    return smem[start + (r // 8) * sbo + (k // 16) * lbo + (r % 8) * 16 + k % 16]
+
+
+def test_int8_dot_loop_layout_models():
+    """int8_dot_loop_kernel's layout on the host: the staged x tile and w^T
+    columns, read back through the descriptors by the PTX ISA's addressing,
+    give the operands' k32 blocks (zero past M, K and N), and A's register
+    fragment gives x's; numpy's tile product scattered into the s32
+    accumulator fragment, stored through the epilogue's map, summed over
+    the rep slices and read by each rank's band equals reps x the product
+    modulo 2^32; rep_slices splits reps into slices that differ by at most
+    one."""
+    S = I8.CLUSTER
+    for reps in (0, 1, S - 1, S, S + 1, 64, 32768):
+        got = I8.rep_slices(reps)
+        assert len(got) == S and sum(got) == reps and max(got) - min(got) <= 1
+    for M, K, N in ((1024, 48, 96), (1003, 37, 90), (1024, 1, 96), (1024, 64, 96)):
+        rng = np.random.default_rng(M + K + N)
+        x, w = _int8(rng, -128, 128, (M, K)), _int8(rng, -128, 128, (K, N))
+        xp = np.zeros((-(-M // 64) * 64, I8.K_PAD), np.int8)
+        wp = np.zeros((I8.K_PAD, -(-N // I8.LOOP_TILE_N) * I8.LOOP_TILE_N), np.int8)
+        xp[:M, :K], wp[:K, :N] = x, w
+        base = 0x400  # shared memory: x's tile, then w's columns (the kernel's order)
+        xs_bytes = I8.LOOP_TILE_M * I8.K_PAD
+        for row0 in (0, (M - 1) // 64 * 64):
+            for col0 in range(0, N, I8.LOOP_TILE_N):
+                smem = np.zeros(base + xs_bytes + I8.LOOP_TILE_N * I8.K_PAD, np.int8)
+                smem[base : base + xs_bytes] = I8.stage_x(x, row0)
+                smem[base + xs_bytes :] = I8.stage_wt(w, col0)
+                xt, wt = xp[row0 : row0 + 64], wp[:, col0 : col0 + I8.LOOP_TILE_N].T
+                for s in range(I8.K_PAD // I8.K_STEP):
+                    da = I8.smem_desc(base) + s * I8.DESC_K_STEP
+                    db = I8.smem_desc(base + xs_bytes) + s * I8.DESC_K_STEP
+                    ks = slice(I8.K_STEP * s, I8.K_STEP * (s + 1))
+                    assert np.array_equal(_canonical_block(smem, da, 64), xt[:, ks])
+                    assert np.array_equal(_canonical_block(smem, db, I8.LOOP_TILE_N), wt[:, ks])
+                    for warp in range(4 if (row0, col0) == (0, 0) else 0):
+                        for lane in range(32):
+                            for reg in range(4):
+                                for b in range(4):
+                                    r, k = I8.a_position(warp, lane, reg, b)
+                                    assert smem[base + I8.staged_offset(r, I8.K_STEP * s + k)] == xt[r, ks][k]
+                if (row0, col0) != (0, 0):
+                    continue
+                prod = xt.astype(np.int64) @ wt.T.astype(np.int64)
+                regs = np.zeros((4, 32, I8.LOOP_TILE_N // 2), np.int64)
+                for warp in range(4):
+                    for lane in range(32):
+                        for i in range(I8.LOOP_TILE_N // 2):
+                            regs[warp, lane, i] = prod[I8.acc_position(warp, lane, i)]
+                reps = 32768 + 3
+                parts = np.zeros((I8.CLUSTER, 64, I8.PART_STRIDE), np.int64)
+                for slice_, n in enumerate(I8.rep_slices(reps)):
+                    for warp in range(4):
+                        for lane in range(32):
+                            for r, c, i in I8.epilogue_pairs(warp, lane):
+                                parts[slice_, r, c : c + 2] += n * regs[warp, lane, i : i + 2]
+                out = np.zeros((64, I8.LOOP_TILE_N), np.int64)
+                seen = np.zeros(out.shape, bool)  # each element written by one rank, once
+                for rank in range(I8.CLUSTER):
+                    for r, c in I8.band_chunks(rank):
+                        assert not seen[r, c : c + 4].any()
+                        seen[r, c : c + 4] = True
+                        out[r, c : c + 4] = parts[:, r, c : c + 4].sum(axis=0) % (1 << 32)
+                assert seen.all()
+                want = (reps * prod) % (1 << 32)
+                assert np.array_equal(out, want)
+                assert np.array_equal(out.astype(np.uint32).view(np.int32)[: min(M, 64), :N],
+                                      I8.int8_dot_loop_plain(torch.as_tensor(x[:64]), torch.as_tensor(w[:, : I8.LOOP_TILE_N]),
+                                                             reps).numpy()[:, :N])
+
+
+def test_int8_dot_loop_constants_match_cuda_source():
+    """csrc/int8_dot.cu's tile, layout and cluster constants equal the
+    Python model's."""
+    import re
+
+    src = (Path(I8.__file__).resolve().parent.parent / "csrc" / "int8_dot.cu").read_text()
+    consts = {m.group(1): m.group(2) for m in re.finditer(r"constexpr int (\w+) = ([^;]+);", src)}
+    for name in ("LOOP_TILE_M", "LOOP_TILE_N", "K_PAD", "K_STEP", "CLUSTER", "LBO", "SBO", "SWIZZLE",
+                 "PART_STRIDE"):
+        assert int(consts[name]) == getattr(I8, name), name
+    instr = re.findall(r'"(wgmma\.mma_async[^ "]*)', src)  # the product: wraps, no .satfinite
+    assert instr == [f"wgmma.mma_async.sync.aligned.m64n{I8.LOOP_TILE_N}k{I8.K_STEP}.s32.s8.s8"]
+    assert "mma.sync" in src.split("int8_dot_loop: reps products")[0]
+    assert "mma.sync" not in src.split("int8_dot_loop: reps products")[1]
+
+
 def test_mxu_consts_match_the_tool(jax_exp):
     want = jax_exp._mxu_consts(FJ.FQ)
     got = MX.mxu_consts(FQ)
