@@ -20,15 +20,21 @@ drives the Jubjub and Pedersen twins: a note-commitment tree of 2^16 leaves
 through the default route, a RedJubjub batch of 256 signatures, an MSM of
 2^10 points and the decompression of 4,096 encodings, each held against the
 host; it logs the widths at which the path launches the add and the square
-root, with their kernel time.
+root, with their kernel time. Then phase "pairing" holds the device pairing
+(ops/pairing.py: the Fq12 tower, the Miller loop and the final
+exponentiation on the Fq product and inversion kernels) against its CPU run
+and the host pairing, and times its product check; phase "batch" also runs
+the bundle's Spend proofs through verify_proofs_batch with the device
+pairing and with the host's, which must agree.
 
     python3 chip_smoke.py             # everything (one card)
     python3 chip_smoke.py --kernels   # build, the proof path's kernel checks and the tools only
     python3 chip_smoke.py --circuits  # build and the real circuits only
     python3 chip_smoke.py --batch     # build, the real circuits and the bundle
     python3 chip_smoke.py --jubjub    # build and phase jubjub only
+    python3 chip_smoke.py --pairing   # build and phase pairing only
     python3 chip_smoke.py --profile   # also one profiled proof per configuration
-                                      # and of the real Spend
+                                      # and of the real Spend, and a profiled stretch of the pairing
 
 The circuit is a seeded synthetic R1CS with the Spend circuit's shape
 (8 inputs, 100,497 aux variables, 100,645 constraints, A/B/C non-zeros
@@ -202,6 +208,13 @@ JUBJUB_TREE_LEAVES = 1 << 16
 JUBJUB_SIGS = 256
 JUBJUB_MSM_POINTS = 1 << 10
 JUBJUB_DECOMPRESS = 4096
+# phase pairing: the pairs of the Miller loop and final exponentiation held
+# against the host, and the kernels the device pairing runs (every tower
+# product, and the Miller loop's batch inversions and f6inv's)
+PAIRING_PAIRS = 4
+PAIRING_KERNELS = ["mont_mul_fq", "mont_inv_fq"]
+# square-and-multiply steps of the hard part profiled with --profile
+PAIRING_PROFILE_BITS = 32
 # the NTT stages (half-width h) at which the product's stage form is held and
 # timed: one row a butterfly group, a narrow group and the widest stage of
 # the 2^17-point transforms
@@ -1494,7 +1507,9 @@ def batch_phase(circuits: dict, dev, card: str) -> dict:
     signature and verify_proof with its job's public inputs) and survive
     Proof.read as 192 bytes; the self-check (verify_proofs_batch) must have
     passed, the binding signature over the bundle's value balance must pass
-    final_check, and every scan kernel must have launched in each run. Logs,
+    final_check, and every scan kernel must have launched in each run; the
+    bundle then goes through BatchValidator (validator_phase) and its Spend
+    proofs through both pairing routes (pairing_route_phase). Logs,
     per window and kind, wall time per proof, the witness time, the setup,
     inputs and wait spans, beside the circuits phase's one-at-a-time times.
     Returns the launches per window."""
@@ -1635,6 +1650,7 @@ def batch_phase(circuits: dict, dev, card: str) -> dict:
         f"with its job's public inputs), each window's binding signature final_check, and the "
         f"self-check passed: {time.perf_counter() - t0:.1f} s of host verification")
     validator_phase(res, bundle, sigs, runs[BATCH_WINDOWS[0]]["binding_sig"], prover, card)
+    pairing_route_phase(res, bundle, prover, card)
 
     job = bundle["spend"][0]
     ctx = prover.new_sapling_proving_context()
@@ -2251,6 +2267,174 @@ def jubjub_phase(dev, rng, card: str) -> dict:
     return {"kernels": kern, "launches": launches, "times": times, "levels": levels}
 
 
+# --- phase pairing: the device pairing ---------------------------------------------------
+
+def _fq12_limbs(f):
+    """An Fq12 tuple's limbs as one CPU tensor, for comparing runs."""
+    import torch
+
+    return torch.stack([x.cpu() for f6 in f for x in f6])
+
+
+def pairing_profile(x, card: str) -> None:
+    """Where a product check's time goes: PAIRING_PROFILE_BITS steps of the
+    hard part's square-and-multiply (most of a check) on the Fq12 value x,
+    timed alone, then under torch.profiler (device activity only): the wall
+    time a step, the device's busy share, the device activities a step and
+    the kernels that take the most."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from masp_tpu_torch.ops import pairing as P
+
+    bits = [1] * PAIRING_PROFILE_BITS
+    P._hard_chunk(x, x, bits[:2])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    P._hard_chunk(x, x, bits)
+    torch.cuda.synchronize()
+    alone_ms = 1e3 * (time.perf_counter() - t0)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        P._hard_chunk(x, x, bits)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    events = prof.key_averages()
+    busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+    products = 2 * len(bits)
+    log(f"[pairing] profile: {len(bits)} square-and-multiply steps ({products} Fq12 products) in {alone_ms:.2f} ms "
+        f"({alone_ms / products:.3f} ms a product; {wall_ms:.2f} ms profiled), device busy {busy_ms:.2f} ms "
+        f"({100 * busy_ms / wall_ms:.1f}%), {sum(e.count for e in events) / products:.1f} device activities a "
+        f"product, on {card}")
+    for e in sorted(events, key=lambda e: e.self_device_time_total, reverse=True)[:8]:
+        log(f"[pairing]   {e.self_device_time_total / 1e3:9.2f} ms {e.count:7d} calls  {e.key[:90]}")
+
+
+def pairing_phase(dev, rng, card: str, profile: bool = False) -> dict:
+    """Phase pairing: ops/pairing.py on the card. (a) The tower operations
+    (f12mul, f12sq, f12conj, f12inv, f12frobenius2 and the easy part) on
+    two seeded Fq12 values give the same limbs as their CPU run, and the
+    host's values; (b) multi_miller_loop_device and then
+    final_exponentiation_device on PAIRING_PAIRS seeded pairs equal the host
+    copy's multi_miller_loop and final_exponentiation; (c) the path, with
+    the launch counts zeroed just before it: pairing_product_is_one_device
+    is True for e(P, Q) e(-P, Q), True for an identity-only list and False
+    for e(P, Q) e(P, Q), each timed with its launches. mont_mul_fq and
+    mont_inv_fq must launch in (c). With ``profile``, pairing_profile after
+    (a). Returns the launches of (c)."""
+    import torch
+
+    from masp_tpu_torch.host import bls12_381 as HB
+    from masp_tpu_torch.kernels import LAUNCHES, reset_launches
+    from masp_tpu_torch.ops import pairing as P
+
+    def rand_fq12():
+        f2 = [HB.Fq2(rng.randrange(HB.Q), rng.randrange(HB.Q)) for _ in range(6)]
+        return HB.Fq12(HB.Fq6(*f2[:3]), HB.Fq6(*f2[3:]))
+
+    a, b = rand_fq12(), rand_fq12()
+    ops = {
+        "f12mul": (lambda x, y: P.f12mul(x, y), a * b),
+        "f12sq": (lambda x, y: P.f12sq(x), a * a),
+        "f12conj": (lambda x, y: P.f12conj(x), a.conjugate()),
+        "f12inv": (lambda x, y: P.f12inv(x), a.invert()),
+        "f12frobenius2": (lambda x, y: P.f12frobenius2(x), a.frobenius().frobenius()),
+        "easy part": (lambda x, y: P._easy_part(x), HB._easy_part(a)),
+    }
+    on = {d: (P.encode_fq12(a, d), P.encode_fq12(b, d)) for d in ("cpu", dev)}
+    for name, (op, want) in ops.items():
+        cpu = op(*on["cpu"])
+        card_out = op(*on[dev])
+        if not torch.equal(_fq12_limbs(card_out), _fq12_limbs(cpu)):
+            raise AssertionError(f"[pairing] {name}: the card's limbs differ from the CPU run's")
+        if P.decode_fq12(card_out) != want:
+            raise AssertionError(f"[pairing] {name}: the card's value differs from the host's")
+    log(f"[pairing] tower operations on the card equal their CPU run limb for limb and the host's values: "
+        f"{', '.join(ops)}")
+    if profile:
+        pairing_profile(on[dev][0], card)
+
+    g1, g2 = HB.G1.generator(), HB.G2.generator()
+    pairs = [(g1 * rng.randrange(1, HB.R), g2 * rng.randrange(1, HB.R)) for _ in range(PAIRING_PAIRS)]
+    t0 = time.perf_counter()
+    want_ml = HB.multi_miller_loop(pairs)
+    want_fe = HB.final_exponentiation(want_ml)
+    host_s = time.perf_counter() - t0
+    coords = P.encode_pairs(pairs, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ml = P.multi_miller_loop_device(*coords)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    fe = P.final_exponentiation_device(ml)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    def first(f):
+        return P._fq12_map(lambda x: x[0], f)
+
+    if P.decode_fq12(first(ml)) != want_ml:
+        raise AssertionError(f"[pairing] the device Miller loop on {PAIRING_PAIRS} pairs differs from the host's")
+    if P.decode_fq12(first(fe)) != want_fe:
+        raise AssertionError("[pairing] the device final exponentiation differs from the host's")
+    log(f"[pairing] {PAIRING_PAIRS} pairs: multi_miller_loop_device {t1 - t0:.3f} s, final_exponentiation_device "
+        f"{t2 - t1:.3f} s, each equal to the host copy's (host {host_s:.3f} s for both) on {card}")
+
+    p, q = pairs[0]
+    checks = (("e(P, Q) e(-P, Q)", [(p, q), (-p, q)], True),
+              ("identities only", [(HB.G1.identity(), q), (p, HB.G2.identity())], True),
+              ("e(P, Q) e(P, Q)", [(p, q), (p, q)], False))
+    reset_launches()
+    for label, check_pairs, want in checks:
+        before = dict(LAUNCHES)
+        t0 = time.perf_counter()
+        got = P.pairing_product_is_one_device(check_pairs, device=dev)
+        wall = time.perf_counter() - t0
+        if got != want:
+            raise AssertionError(f"[pairing] pairing_product_is_one_device({label}): {got}, not {want}")
+        used = {k: n - before[k] for k, n in LAUNCHES.items() if n != before[k]}
+        log(f"[pairing] pairing_product_is_one_device({label}) = {got} in {wall:.3f} s, launches "
+            f"{json.dumps(used)} on {card}")
+    launches = dict(LAUNCHES)
+    for name in PAIRING_KERNELS:
+        if launches[name] <= 0:
+            raise AssertionError(f"[pairing] kernel {name} was not launched on the pairing path")
+    return {"launches": launches}
+
+
+def pairing_route_phase(res, bundle, prover, card: str) -> None:
+    """verify_proofs_batch on the bundle's Spend proofs through both routes,
+    the device pairing (use_device_pairing=True, ops/pairing.py) and the
+    host pairing: with their public inputs both are True, with one input
+    altered both are False; the device route must launch mont_mul_fq and
+    mont_inv_fq, the host route neither."""
+    from masp_tpu_torch.groth16 import sapling_prover as SP
+    from masp_tpu_torch.host.rng import XorShiftRng
+    from masp_tpu_torch.host.structures import Proof
+    from masp_tpu_torch.host.verifier import verify_proofs_batch
+    from masp_tpu_torch.kernels import LAUNCHES
+
+    proofs = [Proof.read(blob) for blob, _, _ in res["spend"]]
+    inputs = [SP.spend_public_inputs(rk.point, cv, anchor, nf)
+              for (_, cv, rk), (anchor, nf) in zip(res["spend"], bundle["verifier"]["spend"])]
+    altered = [list(x) for x in inputs]
+    altered[0][0] += 1
+    for label, public, want in (("as proved", inputs, True), ("one input altered", altered, False)):
+        for on_card in (True, False):
+            before = dict(LAUNCHES)
+            t0 = time.perf_counter()
+            ok = verify_proofs_batch(prover.spend_vk, XorShiftRng.from_seed(BATCH_SEED), proofs, public,
+                                     use_device_pairing=on_card)
+            wall = time.perf_counter() - t0
+            used = {k: n - before[k] for k, n in LAUNCHES.items() if n != before[k]}
+            if ok != want:
+                raise AssertionError(f"[batch] verify_proofs_batch(use_device_pairing={on_card}) on the Spend "
+                                     f"proofs {label}: {ok}, not {want}")
+            if on_card != all(used.get(k, 0) > 0 for k in PAIRING_KERNELS):
+                raise AssertionError(f"[batch] verify_proofs_batch(use_device_pairing={on_card}) launched {used}")
+            log(f"[batch] verify_proofs_batch(use_device_pairing={on_card}) on the {len(proofs)} Spend proofs "
+                f"{label}: {ok} in {wall:.3f} s, launches {json.dumps(used)} on {card}")
+
+
 # --- main ------------------------------------------------------------------------------
 
 def ptxas_report(build) -> dict:
@@ -2411,6 +2595,11 @@ def main(argv) -> int:
                 log(f"  ptxas {' '.join([src, *defines])}: {line.strip()}")
 
     rng = random.Random(SEED)
+    if "--pairing" in argv:
+        pairing_phase(dev, rng, card, "--profile" in argv)
+        print(card)
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": 1}}))
+        return 0
     if "--jubjub" in argv:
         jubjub_phase(dev, rng, card)
         print(card)
@@ -2479,6 +2668,7 @@ def main(argv) -> int:
     circuits = circuits_phase(dev, rng, card, "--profile" in argv)
     batch = batch_phase(circuits, dev, card)
     jubjub = jubjub_phase(dev, rng, card)
+    pairing = pairing_phase(dev, rng, card, "--profile" in argv)
     kern.update(jubjub["kernels"])
     leaf_per_proof(leaf_widths(asm, params, rs[1], dev), params, dev, card)
     for name, r in mont_mul_per_proof(mont_mul_widths(asm, params, rs[1], dev), dev, card).items():
@@ -2497,8 +2687,9 @@ def main(argv) -> int:
     # is CUDA events around one eager call, the host's launch included;
     # "bytes" and "ops_ms" are the two sides of the bound; "launches_by_path"
     # holds each configuration's and each real circuit's launches over its
-    # timed proofs, the bundle's at window 2, the default ("batch"), and the
-    # Jubjub path's ("jubjub");
+    # timed proofs, the bundle's at window 2, the default ("batch"), the
+    # Jubjub path's ("jubjub") and the device pairing's product checks
+    # ("pairing"; the tools' kernels have this entry alone);
     # "widest" is a leaf add's pairs and ms at the main path's widest leaf
     # launch; a product's "forms" (ms through F.mont_mul and
     # bound per operand form), "narrow_ms" (rows: ms, inputs in L2),
@@ -2520,10 +2711,11 @@ def main(argv) -> int:
     line = {"kernels": [{
         "name": name, "route": "cuda", "source": SOURCE[name], "replaces": REPLACES[name],
         "launches": k["launches"] if name in TOOL_KERNELS else path_launches(name),
-        "launches_by_path": None if name in TOOL_KERNELS else {
+        "launches_by_path": {"pairing": pairing["launches"][name]} if name in TOOL_KERNELS else {
             **{label: launches[label][name] for label in order},
             **{kind: c["launches"][name] for kind, c in circuits.items()},
-            "batch": batch[BATCH_WINDOWS[-1]][name], "jubjub": jubjub["launches"][name]},
+            "batch": batch[BATCH_WINDOWS[-1]][name], "jubjub": jubjub["launches"][name],
+            "pairing": pairing["launches"][name]},
         "max_abs_err": k["max_abs_err"], "ms": k["ms"],
         "eager_ms": k["eager_ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
         "bound_by": k["bound_by"], "library_ms": k.get("library_ms"), "bytes": k["bytes"],

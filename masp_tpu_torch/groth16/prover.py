@@ -52,8 +52,13 @@ def msm_flags(env) -> dict:
     for its split (Spend: 50-68k per query; Output and Convert: 17-24k,
     where the split does not pay); MASP_ABC_DEVICE ("1"), the a/b/c values
     on the device. A value of these, or of MASP_MSM_SIGNED,
-    MASP_MSM_FUSED, MASP_MSM_BGMW_H or MASP_MSM (the sorted MSM), that the
-    port does not implement raises ValueError."""
+    MASP_MSM_FUSED, MASP_MSM_BGMW_H, MASP_MSM (the sorted MSM),
+    MASP_MSM_STACK (the stacked MSMs, "0") or MASP_MSM_FROM_LIMBS (digits
+    on the device, "1"), that the port does not implement raises
+    ValueError. MASP_MSM_VMAP_WINDOWS (how XLA batches the windows) and the
+    pairing's MASP_PAIR_MILLER_CHUNK and MASP_PAIR_EXP_CHUNK (how long one
+    XLA program is) have no effect in the port: it runs every window in one
+    batch and the pairing as it goes."""
     c = int(env.get("MASP_MSM_C", "8"))
     if not 2 <= c <= 16:
         raise ValueError(f"MASP_MSM_C={c}: the window width must be 2 .. 16")
@@ -62,7 +67,8 @@ def msm_flags(env) -> dict:
                          f"cannot take (a power-of-two count is needed)")
     for name, default, implemented in (("MASP_MSM_SIGNED", "0", "0"), ("MASP_MSM_FUSED", "0", "0"),
                                        ("MASP_MSM_BGMW_H", "0", "0"), ("MASP_ABC_DEVICE", "1", "1"),
-                                       ("MASP_MSM", "sorted", "sorted")):
+                                       ("MASP_MSM", "sorted", "sorted"), ("MASP_MSM_STACK", "0", "0"),
+                                       ("MASP_MSM_FROM_LIMBS", "1", "1")):
         if env.get(name, default) != implemented:
             raise ValueError(f"{name}={env[name]!r} is not implemented in the port (it runs {implemented!r})")
     return {"MSM_C": c, "MSM_SPLIT": env.get("MASP_MSM_SPLIT", "1") == "1",

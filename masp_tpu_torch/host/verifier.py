@@ -1,8 +1,5 @@
-# Copy of masp_tpu/groth16/verifier.py, verbatim apart from import paths and one
-# branch, marked below: verify_proofs_batch's device pairing (use_device_pairing)
-# raises NotImplementedError until the port has a device pairing (ROADMAP queue 1,
-# item 4); it never falls through to the host pairing. The port imports nothing of
-# masp_tpu.
+# Copy of masp_tpu/groth16/verifier.py, verbatim apart from import paths; the port imports
+# nothing of masp_tpu.
 """Groth16 verification: single and randomized-batch.
 
 Matches bellman ``verify_proof`` / bellperson ``verify_proofs_batch``
@@ -76,11 +73,11 @@ def verify_proofs_batch(
     pairs.append((acc_gamma, pvk.neg_gamma_g2))
     pairs.append((acc_delta, pvk.neg_delta_g2))
     if use_device_pairing and pvk.alpha_g1 is not None:
-        # departs from the source: no device pairing in the port yet
-        raise NotImplementedError(
-            "the device pairing is not ported yet (ROADMAP queue 1, item 4)"
-        )
-        # end of departure
+        # fold (alpha*beta)^sum_z into the product: e(-sum_z alpha, beta)
+        from masp_tpu_torch.ops.pairing import pairing_product_is_one_device
+
+        pairs.append(((-pvk.alpha_g1) * sum_z, pvk.beta_g2))
+        return pairing_product_is_one_device(pairs)
     try:
         ml = multi_miller_loop(pairs)
     except DegeneratePairingInput:

@@ -190,17 +190,22 @@ def _window_sums_wide(fops, buckets):
     return cur[:, :, 0]
 
 
-def bucket_reduce_horner(fops, buckets, c: int):
+def bucket_reduce_horner(fops, buckets, c: int, wide: bool | None = None):
     """(Q, W, B, rowlen) bucket sums of Q independent MSMs -> (Q, rowlen).
 
-    window[w] = sum_k k * bucket[w, k], by ``_window_sums_wide`` where the
-    affine ladder is on (the reference pairs the two), else by the
+    window[w] = sum_k k * bucket[w, k], by ``_window_sums_wide`` (log2(B)
+    window-wide steps and a halving ladder) when ``wide``, else by the
     running-suffix chain (B - 1 dependent steps); then Horner over windows
-    with c doublings between them. The Q MSMs share every launch; each
-    one's arithmetic is what it would be alone."""
+    with c doublings between them. ``wide=None`` chooses as the reference
+    does: the wide form with the affine ladder (the reference pairs the
+    two), with MASP_MSM_WIDE_REDUCE=1, or from B >= 1024 buckets, on either
+    ladder. Both forms give the same points. The Q MSMs share every launch;
+    each one's arithmetic is what it would be alone."""
     Q, n_windows, B, rl = buckets.shape
     dev = buckets.device
-    if _affine_on(fops):
+    if wide is None:
+        wide = _affine_on(fops) or WIDE_REDUCE or B >= 1024
+    if wide:
         acc = _window_sums_wide(fops, buckets)
     else:
         running = identity_rows(fops, (Q, n_windows), dev)
@@ -274,16 +279,13 @@ def ladder_flags(env) -> tuple[bool, int]:
     """(AFFINE_LADDER, AFFINE_LEVELS) from the JAX package's variables:
     MASP_MSM_AFFINE "1" for the batch-affine ladder, "0" or "auto" (the
     default: the port's default, the scan ladder); MASP_MSM_AFFINE_LEVELS
-    (4). The wide bucket reduction runs with the affine ladder and only
-    there, so a MASP_MSM_WIDE_REDUCE=1 on the scan ladder raises, as does
-    any value this port does not implement."""
+    (4). A value this port does not implement raises. MASP_MSM_WIDE_REDUCE
+    (WIDE_REDUCE) does not choose the ladder: it asks for the wide bucket
+    reduction on either (``bucket_reduce_horner``)."""
     affine = env.get("MASP_MSM_AFFINE", "auto")
     if affine not in ("auto", "0", "1"):
         raise ValueError(f"MASP_MSM_AFFINE={affine!r}: the port takes auto, 0 or 1")
     affine = affine == "1"
-    if env.get("MASP_MSM_WIDE_REDUCE", "0") == "1" and not affine:
-        raise ValueError("MASP_MSM_WIDE_REDUCE=1 without MASP_MSM_AFFINE=1: the port runs the wide bucket "
-                         "reduction with the affine ladder only")
     levels = int(env.get("MASP_MSM_AFFINE_LEVELS", "4"))
     if levels < 0:
         raise ValueError(f"MASP_MSM_AFFINE_LEVELS={levels} is negative")
@@ -291,6 +293,8 @@ def ladder_flags(env) -> tuple[bool, int]:
 
 
 AFFINE_LADDER, AFFINE_LEVELS = ladder_flags(os.environ)
+# the wide bucket reduction on either ladder, as the reference reads it
+WIDE_REDUCE = os.environ.get("MASP_MSM_WIDE_REDUCE", "0") == "1"
 
 
 def affine_ladder_takes(n_windows: int, n_points: int) -> bool:

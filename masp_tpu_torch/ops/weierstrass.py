@@ -72,6 +72,16 @@ class Fq2Ops(Fq2Arith):
         return torch.all(torch.all(a == 0, dim=-1), dim=-1)
 
     @staticmethod
+    def inv(a):
+        # 1/(a0 + a1 u) = (a0 - a1 u) / (a0^2 + a1^2): both squares in one
+        # product launch, the norm by the inversion kernel (0 maps to 0),
+        # both scalings in one launch
+        sq = F.mont_mul(FQ, a, a)
+        ninv = F.mont_inv_small(FQ, F.add(FQ, sq[..., 0, :], sq[..., 1, :]))
+        c = F.mont_mul(FQ, a, ninv[..., None, :])
+        return torch.stack([c[..., 0, :], F.neg(FQ, c[..., 1, :])], dim=-2)
+
+    @staticmethod
     def batch_inv(a):
         # 1/(a0 + a1 u) = (a0 - a1 u) / (a0^2 + a1^2)
         a0, a1 = a[..., 0, :], a[..., 1, :]

@@ -1,14 +1,18 @@
 """Stage timing for the prover: host wall time plus CUDA-event device time.
 
 Port of the span timer of masp_tpu/utils/tracing.py. ``span(name)`` is a
-no-op until ``enable()``; when enabled, each span records its host wall time
-and, on a CUDA device, a pair of CUDA events on the current stream, so
-``report()`` can give the stream time between them (work enqueued inside the
-span, plus any idle gap the host left). Reading the report synchronises.
+no-op unless MASP_TRACE=1 at import or ``enable()``; when enabled, each span
+records its host wall time and, on a CUDA device, a pair of CUDA events on
+the current stream, so ``report()`` can give the stream time between them
+(work enqueued inside the span, plus any idle gap the host left). Reading
+the report synchronises. ``device_profile(log_dir)`` records a
+``torch.profiler`` trace of the CPU and, where there is one, the card into
+``log_dir`` as a Chrome trace (the reference's XProf device profile).
 """
 
 from __future__ import annotations
 
+import os
 import time
 from contextlib import contextmanager
 
@@ -60,7 +64,7 @@ class Tracer:
         return out
 
 
-_tracer = Tracer()
+_tracer = Tracer(enabled=os.environ.get("MASP_TRACE") == "1")
 
 
 def enable(on: bool = True) -> None:
@@ -80,4 +84,24 @@ def reset() -> None:
     _tracer.reset()
 
 
-__all__ = ["Tracer", "span", "report", "reset", "enable"]
+@contextmanager
+def device_profile(log_dir: str | None):
+    """Profile the enclosed work with torch.profiler (CPU, and CUDA where a
+    card is present) and write it into ``log_dir`` as a Chrome trace
+    (open it in Perfetto or chrome://tracing). No-op when log_dir is
+    falsy."""
+    if not log_dir:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield
+    prof.export_chrome_trace(os.path.join(log_dir, f"trace_{os.getpid()}_{time.time_ns()}.json"))
+
+
+__all__ = ["Tracer", "span", "report", "reset", "enable", "device_profile"]

@@ -204,18 +204,35 @@ def test_verify_proofs_batch_matches_jax():
         assert got == got_jax == want
 
 def test_device_pairing_raises_and_bulk_tree_matches_host(monkeypatch):
-    """verify_proofs_batch's device pairing, which has no twin in the port
-    yet, raises, never falling back to the host; the frozen tree's bulk hash
-    from 64 pairs a level (the default route) goes through the Pedersen twin,
-    here on the CPU: a 128-leaf tree equals the one hashed on the host."""
+    """verify_proofs_batch's device pairing goes to the port's twin,
+    ops/pairing.pairing_product_is_one_device (here a recorder that answers
+    with the host pairing), never to the host pairing directly: true for the
+    right input, false for a wrong one, with the source's last pair
+    ((-alpha) sum z, beta); the frozen tree's bulk hash from 64 pairs a level
+    (the default route) goes through the Pedersen twin, here on the CPU: a
+    128-leaf tree equals the one hashed on the host."""
+    from masp_tpu_torch.host.bls12_381 import R, pairing_product_is_one
+    from masp_tpu_torch.ops import pairing as TPAIR
     from masp_tpu_torch.ops import pedersen as TPED
 
     params, _ = _host_params(CubicCircuit())
     cs, _ = _witness(CubicCircuit(x=3))
     pvk = HS.prepare_verifying_key(_port_params(params).vk)
     proof = HS.Proof.read(REF.host_proof(cs, params, 5, 7).write())
-    with pytest.raises(NotImplementedError, match="queue 1, item 4"):
-        verify_proofs_batch(pvk, XorShiftRng.from_seed(SEED), [proof], [[35]], use_device_pairing=True)
+    recorded = []
+
+    def recorder(pairs):
+        recorded.append(list(pairs))
+        return pairing_product_is_one(pairs)
+
+    monkeypatch.setattr(TPAIR, "pairing_product_is_one_device", recorder)
+    z = int.from_bytes(XorShiftRng.from_seed(SEED).fill_bytes(16), "little")
+    for inputs, want in (([[35]], True), ([[36]], False)):
+        got = verify_proofs_batch(pvk, XorShiftRng.from_seed(SEED), [proof], inputs, use_device_pairing=True)
+        assert got is want
+        assert len(recorded[-1]) == 4
+        assert recorded[-1][-1] == ((-pvk.alpha_g1) * (z % R), pvk.beta_g2)
+    assert len(recorded) == 2
     leaves = [Node.from_scalar(Scalar(i + 2)) for i in range(128)]
     calls, twin = [], TPED.batch_merkle_hash
 

@@ -59,16 +59,15 @@ COPIES = {
 FUNCTION_COPIES = {
     "tools/fixtures.py": ("bench.py", ("_spend_fixture", "_convert_fixture", "_output_fixture")),
 }
-# the only copies with marked departures from their source: the device
-# branch that raises until the port has its device twin (first line of the
-# block: the raise), the native library's build, and the port's Parameters
-# where the proving keys are taken, loaded or written
-DEVICE_BRANCHES = {"host/verifier.py"}
-DEPARTURES = DEVICE_BRANCHES | {
+# the only copies with marked departures from their source: the native
+# library's build, and the port's Parameters where the proving keys are
+# taken, loaded or written (every copied device branch reaches its twin)
+DEPARTURES = {
     "host/native/__init__.py", "groth16/sapling_prover.py", "groth16/params_io.py",
     "groth16/local_prover.py"}
 # port import path -> source import path, the first match per import line
 IMPORTS = [
+    ("masp_tpu_torch.ops.pairing", "masp_tpu.ops.pairing_jax"),
     ("masp_tpu_torch.ops.pedersen", "masp_tpu.ops.pedersen_jax"),
     ("masp_tpu_torch.ops.jubjub", "masp_tpu.ops.jubjub_jax"),
     ("masp_tpu_torch.groth16.synthesis import add_input_constraints as _add_input_constraints",
@@ -165,11 +164,6 @@ def test_copies_are_verbatim_apart_from_imports():
             if g != w:
                 differ[f"{port_file}:{name}"] = "function differs from its source"
     assert not differ, differ
-    # a device route that is not ported raises at once
-    for port_file in DEVICE_BRANCHES:
-        lines = (PORT / port_file).read_text().split("\n")
-        ((s, e),) = _departure_blocks(lines)
-        assert lines[s + 1].strip() == "raise NotImplementedError(", port_file
 
 
 @pytest.fixture(scope="module")

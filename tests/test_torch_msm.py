@@ -193,6 +193,47 @@ def test_sorted_msm_and_masked_sum_match_host(ladder, group, n):
     assert _decode(group, MS.masked_sum(fops, packed, bits)) == _port(group, [want_bits])[0]
 
 
+@pytest.mark.parametrize("c", [4, 8])
+def test_scan_ladder_wide_reduction_matches_sequential_and_host(monkeypatch, c):
+    """On the scan ladder, bucket_reduce_horner's wide form (the reference's
+    choice with MASP_MSM_WIDE_REDUCE=1 or from 1,024 buckets) gives the
+    sequential form's point and the host's MSM, at c = 4 and c = 8. The
+    buckets are the digit classes' sums, added on the host (the ladder's
+    own buckets are held above). wide=None takes the wide form under
+    WIDE_REDUCE and from 1,024 buckets."""
+    monkeypatch.setattr(MS, "AFFINE_LADDER", False)
+    n = 64
+    pts = _points(HG1, n, 20 + c)
+    scal = _scalars(n, 21 + c)
+    digits = MS.windows_from_limbs(_t(_limbs(scal)), c).numpy()
+    nw, B = digits.shape[1], 1 << c
+    sums = [[HG1.identity()] * B for _ in range(nw)]
+    for i, p in enumerate(pts):
+        for w in range(nw):
+            sums[w][digits[i, w]] = sums[w][digits[i, w]] + p
+    buckets = _t(_packed(1, [b for row in sums for b in row])).reshape(1, nw, B, 72)
+    wide = MS.bucket_reduce_horner(W.G1Ops, buckets, c, wide=True)[0]
+    seq = MS.bucket_reduce_horner(W.G1Ops, buckets, c, wide=False)[0]
+    want = HG1.identity()
+    for p, s in zip(pts, scal):
+        want = want + p * s
+    assert _decode(1, wide) == _decode(1, seq) == _port(1, [want])[0]
+
+    class Wide(Exception):
+        pass
+
+    def chosen(fops, buckets):
+        raise Wide
+
+    monkeypatch.setattr(MS, "_window_sums_wide", chosen)
+    monkeypatch.setattr(MS, "WIDE_REDUCE", True)
+    with pytest.raises(Wide):
+        MS.bucket_reduce_horner(W.G1Ops, buckets, c)
+    monkeypatch.setattr(MS, "WIDE_REDUCE", False)
+    with pytest.raises(Wide):
+        MS.bucket_reduce_horner(W.G1Ops, buckets[:, :1, :1].expand(1, 1, 1024, 72), c)
+
+
 @pytest.mark.slow
 def test_msm_limbs_match_jax(monkeypatch):
     """Bucket limbs, MSM result limbs and masked-sum limbs of the scan

@@ -204,11 +204,12 @@ def test_msm_flags_are_read_or_raise(monkeypatch):
     assert MS.ladder_flags({"MASP_MSM_AFFINE": "1", "MASP_MSM_AFFINE_LEVELS": "2",
                             "MASP_MSM_WIDE_REDUCE": "1"}) == (True, 2)
     for env in ({"MASP_MSM_SIGNED": "1"}, {"MASP_MSM_FUSED": "1"}, {"MASP_MSM_BGMW_H": "1"},
-                {"MASP_ABC_DEVICE": "0"}, {"MASP_MSM": "lanes"}, {"MASP_MSM_C": "17"}):
+                {"MASP_ABC_DEVICE": "0"}, {"MASP_MSM": "lanes"}, {"MASP_MSM_C": "17"},
+                {"MASP_MSM_STACK": "1"}, {"MASP_MSM_FROM_LIMBS": "0"}):
         with pytest.raises(ValueError, match=next(iter(env)) + "="):
             TP.msm_flags(env)
-    with pytest.raises(ValueError, match="MASP_MSM_WIDE_REDUCE=1"):
-        MS.ladder_flags({"MASP_MSM_WIDE_REDUCE": "1"})
+    # the wide reduction runs on either ladder: the flag leaves the scan ladder
+    assert MS.ladder_flags({"MASP_MSM_WIDE_REDUCE": "1"}) == (False, 4)
     with pytest.raises(ValueError, match="MASP_MSM_AFFINE="):
         MS.ladder_flags({"MASP_MSM_AFFINE": "yes"})
     monkeypatch.setattr(MS, "AFFINE_LADDER", True)
@@ -233,6 +234,42 @@ def test_msm_flags_are_read_or_raise(monkeypatch):
     monkeypatch.setattr(TP, "MSM_SPLIT", False)
     TP.prepare_split_queries(tparams, asm)
     assert not any(k.endswith("_small") for k in tparams.device)
+
+
+def test_tracing_reads_masp_trace_and_profiles(tmp_path, monkeypatch):
+    """The tracer starts enabled under MASP_TRACE=1 and disabled without it
+    (read at import, as the reference reads it); device_profile writes a
+    Chrome trace of the enclosed work into its directory, and does nothing
+    for None."""
+    import json
+    import subprocess
+    import sys
+
+    from masp_tpu_torch.utils import tracing as T
+
+    code = ("import importlib, os\n"
+            "from masp_tpu_torch.utils import tracing as T\n"
+            "for value in ('1', '0'):\n"
+            "    os.environ['MASP_TRACE'] = value\n"
+            "    importlib.reload(T)\n"
+            "    with T.span('s'):\n        pass\n"
+            "    print(T._tracer.enabled, T.report().get('s', {}).get('count'))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=300,
+                         check=True).stdout
+    assert out.split("\n")[:2] == ["True 1", "False None"]
+    with T.device_profile(str(tmp_path / "trace")):
+        F.mont_mul(F.FR, torch.ones(4, 16, dtype=torch.int32), torch.ones(4, 16, dtype=torch.int32))
+    (trace,) = (tmp_path / "trace").iterdir()
+    assert trace.suffix == ".json" and json.loads(trace.read_text())["traceEvents"]
+
+    def no_profiler(*args, **kwargs):
+        raise AssertionError("profiled without a directory")
+
+    monkeypatch.setattr(torch.profiler, "profile", no_profiler)
+    for log_dir in (None, ""):
+        with T.device_profile(log_dir):
+            pass
+    assert [p.name for p in tmp_path.iterdir()] == ["trace"]
 
 
 def test_h_coefficients_match_host_reference():
