@@ -25,12 +25,19 @@ root, with their kernel time. Then phase "pairing" holds the device pairing
 exponentiation on the Fq product and inversion kernels) against its CPU run
 and the host pairing, and times its product check; phase "batch" also runs
 the bundle's Spend proofs through verify_proofs_batch with the device
-pairing and with the host's, which must agree.
+pairing and with the host's, which must agree. Phase "tx", after "batch",
+drives a wallet through the port's transaction builder on the circuits'
+Parameters: ZIP-32 keys, a 1,024-note tree and a conversion tree built on the
+card, a transaction of 2 Spends, 1 Convert and 3 Outputs through
+LocalTxProver.prove_jobs, its validation (and rejection when altered), its
+rebuild from stored build parameters, the decryption of its outputs, and a
+scan of 512 compact outputs through the device decompression.
 
     python3 chip_smoke.py             # everything (one card)
     python3 chip_smoke.py --kernels   # build, the proof path's kernel checks and the tools only
     python3 chip_smoke.py --circuits  # build and the real circuits only
     python3 chip_smoke.py --batch     # build, the real circuits and the bundle
+    python3 chip_smoke.py --tx        # build, the real circuits and the wallet's transaction
     python3 chip_smoke.py --jubjub    # build and phase jubjub only
     python3 chip_smoke.py --pairing   # build and phase pairing only
     python3 chip_smoke.py --profile   # also one profiled proof per configuration
@@ -215,6 +222,16 @@ PAIRING_PAIRS = 4
 PAIRING_KERNELS = ["mont_mul_fq", "mont_inv_fq"]
 # square-and-multiply steps of the hard part profiled with --profile
 PAIRING_PROFILE_BITS = 32
+# phase tx: the wallet's note-commitment tree (device levels from 512 down
+# to 64 pairs), its conversion tree (one device level), the compact outputs
+# it scans (a wallet catching up over a few blocks), the XorShiftRng seeds
+# of the build's rng, its build parameters and the validator, and the byte
+# of the first spend's proof that the rejection check flips
+TX_LEAVES = 1 << 10
+TX_CONVERSIONS = 128
+TX_SCAN = 512
+TX_SEEDS = (b"chip_smoke tx rn", b"chip_smoke tx bp", b"chip_smoke tx vr")
+TX_FLIP = 100
 # the NTT stages (half-width h) at which the product's stage form is held and
 # timed: one row a butterfly group, a narrow group and the widest stage of
 # the 2^17-point transforms
@@ -2435,6 +2452,262 @@ def pairing_route_phase(res, bundle, prover, card: str) -> None:
                 f"{label}: {ok} in {wall:.3f} s, launches {json.dumps(used)} on {card}")
 
 
+# --- phase tx: the transaction builder, keys and note encryption -----------------------
+
+def _tx_step(steps: dict, name: str, fn):
+    """fn() with the launch counts zeroed just before it and read just
+    after (the card synchronised); its launches go into steps[name]."""
+    import torch
+
+    from masp_tpu_torch.kernels import LAUNCHES, reset_launches
+
+    reset_launches()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    steps[name] = dict(LAUNCHES)
+    return out, wall
+
+
+def _tx_verdict(bundle, sighash, prover, spends=None, binding_sig=None):
+    """BatchValidator on the bundle, its spends or binding signature
+    replaced where given: (check_bundle, validate or None) with the
+    signature batches on the card and the Groth16 batches on the host
+    pairing."""
+    from types import SimpleNamespace
+
+    from masp_tpu_torch.groth16 import sapling_prover as SP
+    from masp_tpu_torch.host.rng import XorShiftRng
+
+    validator = SP.BatchValidator()
+    described = SimpleNamespace(
+        shielded_spends=bundle.shielded_spends if spends is None else spends,
+        shielded_converts=bundle.shielded_converts, shielded_outputs=bundle.shielded_outputs,
+        value_balance=bundle.value_balance,
+        authorization=SimpleNamespace(binding_sig=binding_sig or bundle.authorization.binding_sig))
+    if not validator.check_bundle(described, sighash):
+        return False, None
+    return True, validator.validate(prover.spend_vk, prover.convert_vk, prover.output_vk,
+                                    XorShiftRng.from_seed(TX_SEEDS[2]), use_device_sigs=True)
+
+
+def tx_phase(circuits: dict, dev, card: str) -> dict:
+    """Phase tx: a wallet's whole flow through the port's transaction
+    builder (masp_tpu_torch/tools/wallet.py), at the real sizes, on the
+    circuits phase's three Parameters. Keys: a ZIP-32 master key from a seed
+    and its hardened child, their default addresses (FF1 over host/crypto.py's
+    AES). Trees: TX_LEAVES notes with the two funding notes at known
+    positions and TX_CONVERSIONS conversions, each through
+    FrozenCommitmentTree.new's device route (64 pairs a level and up), root
+    and the spent paths equal to the host's CommitmentTree and
+    IncrementalWitness. Build: Builder.build with 2 Spends of two asset
+    types, 1 Convert, 3 Outputs and a transparent output through
+    LocalTxProver.prove_jobs, timed, prove_jobs apart; every scan-path kernel
+    must launch. Checks: the bytes re-parse to the same bytes and txid;
+    BatchValidator passes (signatures on the card, proofs on the host
+    pairing) and fails with one proof byte flipped, with the two spends'
+    proofs swapped and with one binding signature byte flipped. Rebuild from
+    the stored build parameters (through their borsh bytes) with the same
+    seeds: the same txid and the same bytes but for the proofs, which
+    prove_jobs draws from the OS; it validates too. Decrypt: every output with
+    its recipient's ivk, and with the sender's ovk all but the one sent
+    without it, each equal to what was added. Scan: TX_SCAN compact outputs
+    of the tree's last notes with both accounts' ivks, through batch_epk's
+    device branch (fr_sqrt must launch), equal to the host route
+    (MASP_EPK_DEVICE_MIN=0) output by output and to what was sent. Returns
+    the phase's launches, summed over its steps."""
+    import importlib.util
+
+    from masp_tpu_torch.groth16.local_prover import LocalTxProver
+    from masp_tpu_torch.host.note_encryption import (
+        batch_try_compact_note_decryption, try_note_decryption, try_output_recovery_with_ovk,
+    )
+    from masp_tpu_torch.host.note_encryption.sapling_domain import SaplingDomain
+    from masp_tpu_torch.host.primitives.consensus import TEST_NETWORK
+    from masp_tpu_torch.host.primitives.merkle_tree import FrozenCommitmentTree
+    from masp_tpu_torch.host.primitives.redjubjub import Signature
+    from masp_tpu_torch.host.rng import XorShiftRng
+    from masp_tpu_torch.host.structures import Proof
+    from masp_tpu_torch.host.transaction.components.sapling import SpendDescription
+    from masp_tpu_torch.host.transaction.components.sapling_builder import RngBuildParams, StoredBuildParams
+    from masp_tpu_torch.host.transaction.fees import FixedFeeRule
+    from masp_tpu_torch.host.transaction.sighash import SignableInput, signature_hash
+    from masp_tpu_torch.host.transaction.transaction import Transaction
+    from masp_tpu_torch.host.transaction.txid import TxIdDigester
+    from masp_tpu_torch.tools import wallet as W
+
+    for var in ("MASP_MERKLE_DEVICE_MIN", "MASP_EPK_DEVICE_MIN"):
+        if var in os.environ:
+            raise AssertionError(f"[tx] {var} is set: the trees and the scan must take the default routes")
+    log(f"[tx] `cryptography` importable on this machine: {importlib.util.find_spec('cryptography') is not None} "
+        f"(the port uses masp_tpu_torch/host/crypto.py either way)")
+    t0 = time.perf_counter()
+    w = W.make_wallet(W.SEED, TX_LEAVES, TX_CONVERSIONS)
+    scanned = range(TX_LEAVES - TX_SCAN, TX_LEAVES)
+    compact = W.compact_outputs(w, scanned)
+    log(f"[tx] wallet on the host: keys, {TX_LEAVES} notes, {TX_CONVERSIONS} conversions and {TX_SCAN} compact "
+        f"outputs encrypted in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    root, host_spend_paths = W.host_paths(w.leaves, w.positions)
+    croot, (host_cpath,) = W.host_paths(w.conversions, (w.conversion_pos,))
+    log(f"[tx] host CommitmentTree and IncrementalWitness paths of both trees in {time.perf_counter() - t0:.1f} s")
+
+    steps, times = {}, {}
+    (tree, ctree), times["trees"] = _tx_step(steps, "trees", lambda: (
+        FrozenCommitmentTree.new(w.leaves), FrozenCommitmentTree.new(w.conversions)))
+    spend_paths, cpath = [tree.path(p) for p in w.positions], ctree.path(w.conversion_pos)
+    if (tree.root(), ctree.root()) != (root, croot):
+        raise AssertionError("[tx] a tree's root built on the card differs from the host CommitmentTree's")
+    if [p.to_bytes() for p in spend_paths + [cpath]] != [p.to_bytes() for p in host_spend_paths + [host_cpath]]:
+        raise AssertionError("[tx] a path of the card-built trees differs from the host IncrementalWitness path")
+    for name in ("pedersen_fold", "mont_mul_fr", "mont_inv_fr"):
+        if steps["trees"][name] <= 0:
+            raise AssertionError(f"[tx] kernel {name} was not launched by the trees")
+    log(f"[tx] trees of {TX_LEAVES} notes and {TX_CONVERSIONS} conversions on the card in {times['trees']:.3f} s, "
+        f"roots and the {len(spend_paths) + 1} paths equal to the host's; launches "
+        f"{json.dumps({k: n for k, n in steps['trees'].items() if n})} on {card}")
+
+    prover = LocalTxProver(*(circuits[k]["params"] for k in ("spend", "output", "convert")))
+    prove_jobs, spans = prover.prove_jobs, []
+
+    def timed_prove_jobs(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = prove_jobs(*args, **kwargs)
+        spans.append(time.perf_counter() - t0)
+        return out
+
+    prover.prove_jobs = timed_prove_jobs
+
+    def build(bparams):
+        return W.builder(w, spend_paths, cpath).build(
+            prover, FixedFeeRule.non_standard(W.fee()), XorShiftRng.from_seed(TX_SEEDS[0]), bparams)
+
+    bparams = RngBuildParams(XorShiftRng.from_seed(TX_SEEDS[1]))
+    (tx, meta), times["build"] = _tx_step(steps, "build", lambda: build(bparams))
+    bundle = tx.sapling_bundle
+    shape = [len(x) for x in (bundle.shielded_spends, bundle.shielded_converts, bundle.shielded_outputs)]
+    if shape != [2, 1, 3] or len(tx.transparent_bundle.vout) != 1 or len(spans) != 1:
+        raise AssertionError(f"[tx] the build gave {shape} descriptions, {len(tx.transparent_bundle.vout)} "
+                             f"transparent outputs, {len(spans)} prove_jobs calls")
+    for name in SCAN_KERNELS:
+        if steps["build"][name] <= 0:
+            raise AssertionError(f"[tx] kernel {name} was not launched by Builder.build")
+    log(f"[tx] Builder.build of 2 Spends, 1 Convert, 3 Outputs and 1 transparent output: {times['build']:.3f} s, "
+        f"of it prove_jobs {spans[0]:.3f} s and the rest (shuffle, note encryption, digests, signing) "
+        f"{times['build'] - spans[0]:.3f} s; {len(tx.to_bytes())} bytes, txid {tx.txid().data[::-1].hex()}; "
+        f"launches {json.dumps({k: n for k, n in steps['build'].items() if n})} on {card}")
+
+    raw = tx.to_bytes()
+    again = Transaction.from_bytes(raw)
+    if again.to_bytes() != raw or again.txid() != tx.txid():
+        raise AssertionError("[tx] the transaction does not re-parse to the same bytes and txid")
+    sighash = signature_hash(tx.data, SignableInput.shielded(), tx.data.digest(TxIdDigester()))
+    verdict, times["validate"] = _tx_step(steps, "validate", lambda: _tx_verdict(bundle, sighash, prover))
+    if verdict != (True, True):
+        raise AssertionError(f"[tx] BatchValidator on the transaction: {verdict}, not (True, True)")
+    for name in ("jubjub_add", "fr_sqrt"):
+        if steps["validate"][name] <= 0:
+            raise AssertionError(f"[tx] kernel {name} was not launched by the device signature batches")
+    log(f"[tx] BatchValidator on the transaction: True in {times['validate']:.3f} s (signature batches on the "
+        f"card, Groth16 batches on the host pairing); launches "
+        f"{json.dumps({k: n for k, n in steps['validate'].items() if n})} on {card}")
+    spend0 = bundle.shielded_spends[0]
+    proof = bytearray(spend0.zkproof)
+    proof[TX_FLIP] ^= 1
+    flipped = [SpendDescription(spend0.cv, spend0.anchor, spend0.nullifier, spend0.rk, bytes(proof),
+                                spend0.spend_auth_sig)] + bundle.shielded_spends[1:]
+    a, b = bundle.shielded_spends
+    swapped = [SpendDescription(s.cv, s.anchor, s.nullifier, s.rk, o.zkproof, s.spend_auth_sig)
+               for s, o in ((a, b), (b, a))]
+    sig = bundle.authorization.binding_sig
+    sbar = bytearray(sig.sbar)
+    sbar[0] ^= 1
+    for label, kwargs in (("one proof byte flipped", {"spends": flipped}),
+                          ("the two spends' proofs swapped", {"spends": swapped}),
+                          ("one binding signature byte flipped", {"binding_sig": Signature(sig.rbar, bytes(sbar))})):
+        t0 = time.perf_counter()
+        got = _tx_verdict(bundle, sighash, prover, **kwargs)
+        if got not in ((False, None), (True, False)) or "swapped" in label and got != (True, False):
+            raise AssertionError(f"[tx] BatchValidator on the transaction with {label}: {got}")
+        log(f"[tx] BatchValidator with {label}: check_bundle {got[0]}, validate {got[1]} "
+            f"({time.perf_counter() - t0:.3f} s)")
+    log(f"[tx] with its byte {TX_FLIP} flipped the first spend's proof "
+        f"{'still parses' if Proof.try_read(bytes(proof)) is not None else 'no longer parses'} (Proof.try_read)")
+
+    stored = StoredBuildParams.from_bytes(bparams.to_stored().to_bytes())
+    (rebuilt, _), times["rebuild"] = _tx_step(steps, "rebuild", lambda: build(stored))
+    if rebuilt.txid() != tx.txid() or W.without_proofs(rebuilt) != W.without_proofs(tx):
+        raise AssertionError("[tx] the rebuild from the stored build parameters differs beyond its proofs")
+    fresh = sum(x.zkproof != y.zkproof for kind in ("shielded_spends", "shielded_converts", "shielded_outputs")
+                for x, y in zip(getattr(tx.sapling_bundle, kind), getattr(rebuilt.sapling_bundle, kind)))
+    rsighash = signature_hash(rebuilt.data, SignableInput.shielded(), rebuilt.data.digest(TxIdDigester()))
+    if rsighash != sighash or _tx_verdict(rebuilt.sapling_bundle, rsighash, prover) != (True, True):
+        raise AssertionError("[tx] the rebuilt transaction does not validate under the same sighash")
+    if fresh != 6:
+        raise AssertionError(f"[tx] only {fresh} of the rebuild's 6 proofs differ; prove_jobs draws (r, s) afresh")
+    log(f"[tx] rebuild from the stored build parameters ({len(bparams.to_stored().to_bytes())} borsh bytes): "
+        f"{times['rebuild']:.3f} s, the same txid and bytes but for its 6 fresh proofs, and it validates")
+
+    domain = SaplingDomain(TEST_NETWORK, W.HEIGHT)
+    ivk_of = {w.addr.to_bytes(): w.ivks()[0], w.child_addr.to_bytes(): w.ivks()[1]}
+    t0 = time.perf_counter()
+    recovered = 0
+    for n, (ovk, to, asset, value, memo) in enumerate(W.outputs(w)):
+        out = bundle.shielded_outputs[meta.output_index(n)]
+        got = try_note_decryption(domain, ivk_of[to.to_bytes()], out)
+        if got is None or (got[0].asset_type, got[0].value, got[1], got[2]) != (asset, value, to, memo):
+            raise AssertionError(f"[tx] output {n} does not decrypt to what was sent")
+        back = try_output_recovery_with_ovk(domain, w.xsk.expsk.ovk, out, out.cv, out.out_ciphertext)
+        if (back is not None) != (ovk is not None) or back is not None and back != got:
+            raise AssertionError(f"[tx] output {n}: the sender's ovk recovers {back is not None}, sent with "
+                                 f"ovk {ovk is not None}")
+        recovered += back is not None
+    times["decrypt"] = time.perf_counter() - t0
+    log(f"[tx] every output decrypts with its recipient's ivk to what was sent; the sender's ovk recovers "
+        f"{recovered} of 3 (not the one sent without it): {times['decrypt']:.3f} s on the host")
+
+    scan, times["scan"] = _tx_step(steps, "scan", lambda: batch_try_compact_note_decryption(w.ivks(), compact))
+    if steps["scan"]["fr_sqrt"] <= 0 or steps["scan"]["mont_inv_fr"] <= 0:
+        raise AssertionError(f"[tx] the scan did not take batch_epk's device branch: {steps['scan']}")
+    os.environ["MASP_EPK_DEVICE_MIN"] = "0"
+    try:
+        t0 = time.perf_counter()
+        host = batch_try_compact_note_decryption(w.ivks(), compact)
+        times["scan_host"] = time.perf_counter() - t0
+    finally:
+        os.environ.pop("MASP_EPK_DEVICE_MIN")
+    got = [W.scan_key(r) for r in scan]
+    if got != [W.scan_key(r) for r in host]:
+        raise AssertionError("[tx] the scan through the device branch differs from the host route")
+    if [None if g is None else g[-1] for g in got] != W.expected_scan(w, scanned):
+        raise AssertionError("[tx] the scan did not find exactly the notes sent to the two accounts")
+    log(f"[tx] scan of {TX_SCAN} compact outputs with 2 ivks: {times['scan']:.3f} s through batch_epk's device "
+        f"branch, {times['scan_host']:.3f} s on the host route, {sum(g is not None for g in got)} notes found, "
+        f"equal output by output; launches {json.dumps({k: n for k, n in steps['scan'].items() if n})} on {card}")
+    # the part of the scan that the routes differ in: batch_epk alone, each
+    # route 3 times on the host clock (the device branch returns host
+    # points, so it has waited for the card)
+    domain = compact[0][0]
+    keys = [o.ephemeral_key for _, o in compact]
+    for route, use_device in (("epk_device", True), ("epk_host", False)):
+        runs = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            domain.batch_epk(keys, use_device=use_device)
+            runs.append(time.perf_counter() - t0)
+        times[route] = sorted(runs)[1]
+    log(f"[tx] batch_epk alone on the {TX_SCAN} encodings, median of 3: device branch {times['epk_device']:.4f} s, "
+        f"host route {times['epk_host']:.4f} s, of the scan's {times['scan']:.3f} s on {card}")
+    launches = {k: sum(s[k] for s in steps.values()) for k in steps["build"]}
+    log(f"[tx] times {json.dumps({k: round(v, 4) for k, v in times.items()})} s; launches over the phase's steps "
+        f"{json.dumps({k: n for k, n in launches.items() if n})} on {card}")
+    for name in SCAN_KERNELS + JUBJUB_KERNELS:
+        if launches[name] <= 0:
+            raise AssertionError(f"[tx] kernel {name} was not launched on the transaction path")
+    return {"launches": launches, "times": times}
+
+
 # --- main ------------------------------------------------------------------------------
 
 def ptxas_report(build) -> dict:
@@ -2605,10 +2878,12 @@ def main(argv) -> int:
         print(card)
         print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": 1}}))
         return 0
-    if "--circuits" in argv or "--batch" in argv:
+    if "--circuits" in argv or "--batch" in argv or "--tx" in argv:
         circuits = circuits_phase(dev, rng, card, "--profile" in argv)
         if "--batch" in argv:
             batch_phase(circuits, dev, card)
+        if "--tx" in argv:
+            tx_phase(circuits, dev, card)
         print(card)
         print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": 1}}))
         return 0
@@ -2667,6 +2942,7 @@ def main(argv) -> int:
         raise AssertionError("[scan] the scan ladder launched the affine kernels")
     circuits = circuits_phase(dev, rng, card, "--profile" in argv)
     batch = batch_phase(circuits, dev, card)
+    tx = tx_phase(circuits, dev, card)
     jubjub = jubjub_phase(dev, rng, card)
     pairing = pairing_phase(dev, rng, card, "--profile" in argv)
     kern.update(jubjub["kernels"])
@@ -2688,6 +2964,7 @@ def main(argv) -> int:
     # "bytes" and "ops_ms" are the two sides of the bound; "launches_by_path"
     # holds each configuration's and each real circuit's launches over its
     # timed proofs, the bundle's at window 2, the default ("batch"), the
+    # wallet's transaction path, summed over phase tx's steps ("tx"), the
     # Jubjub path's ("jubjub") and the device pairing's product checks
     # ("pairing"; the tools' kernels have this entry alone);
     # "widest" is a leaf add's pairs and ms at the main path's widest leaf
@@ -2714,7 +2991,7 @@ def main(argv) -> int:
         "launches_by_path": {"pairing": pairing["launches"][name]} if name in TOOL_KERNELS else {
             **{label: launches[label][name] for label in order},
             **{kind: c["launches"][name] for kind, c in circuits.items()},
-            "batch": batch[BATCH_WINDOWS[-1]][name], "jubjub": jubjub["launches"][name],
+            "batch": batch[BATCH_WINDOWS[-1]][name], "tx": tx["launches"][name], "jubjub": jubjub["launches"][name],
             "pairing": pairing["launches"][name]},
         "max_abs_err": k["max_abs_err"], "ms": k["ms"],
         "eager_ms": k["eager_ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],

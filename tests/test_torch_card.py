@@ -12,7 +12,9 @@ on both ranges and ragged shapes) with the edge lanes first. The
 Montgomery product runs at each width in every operand
 form of the main path (strided and broadcast views, read in place) and on
 unaligned rows. One case proves a tiny circuit on the card and holds the
-proof against the port's CPU proof of the same witness.
+proof against the port's CPU proof of the same witness; one holds the
+port's AEAD (host/crypto.py) against RFC 8439 and the note scan's device
+decompression (SaplingDomain.batch_epk at 64 encodings) against the host.
 
 This file imports neither jax nor masp_tpu, so it runs where only the port
 is installed; every test is marked ``cuda`` and skips without a card. Run it
@@ -36,8 +38,11 @@ from masp_tpu_torch import groth16 as TG
 from masp_tpu_torch.groth16 import prover as TP
 from masp_tpu_torch.groth16 import synthesis as S
 from masp_tpu_torch.host.bls12_381 import G1, G2
+from masp_tpu_torch.host.crypto import ChaCha20Poly1305
 from masp_tpu_torch.host.fields import SCALAR_MODULUS, JubjubFr, Scalar
 from masp_tpu_torch.host.jubjub import ExtendedPoint
+from masp_tpu_torch.host.note_encryption.sapling_domain import SaplingDomain
+from masp_tpu_torch.host.primitives.consensus import TEST_NETWORK
 from masp_tpu_torch.host.primitives.constants import spending_key_generator
 from masp_tpu_torch.host.r1cs.cs import ONE, KeypairAssembly, lc_var
 from masp_tpu_torch.host.structures import prepare_verifying_key
@@ -389,6 +394,29 @@ def check_card_proof(dev):
     assert verify_proof(prepare_verifying_key(params.vk), on_card, [35])
 
 
+def check_note_scan(dev):
+    """The port's AEAD (host/crypto.py, since the card machine need not have
+    `cryptography`) against RFC 8439 §2.8.2, and SaplingDomain.batch_epk's
+    device branch at 64 encodings, its default threshold, with two invalid
+    ones, against the host route."""
+    text = (b"Ladies and Gentlemen of the class of '99: If I could offer you only one tip for the future, "
+            b"sunscreen would be it.")
+    nonce, aad = bytes.fromhex("070000004041424344454647"), bytes.fromhex("50515253c0c1c2c3c4c5c6c7")
+    sealed = ChaCha20Poly1305(bytes(range(0x80, 0xA0))).encrypt(nonce, text, aad)
+    assert sealed.hex() == (
+        "d31a8d34648e60db7b86afbc53ef7ec2a4aded51296e08fea9e2b5a736ee62d63dbea45e8ca9671282fafb69da92728b"
+        "1a71de0a9e060b2905d6a5b67ecd3b3692ddbd7f2d778b8c9803aee328091b58fab324e4fad675945585808b4831d7bc"
+        "3ff4def08e4b7a9de576d26586cec64b6116" "1ae10b594f09e26a7e902ecbd0600691")
+    assert ChaCha20Poly1305(bytes(range(0x80, 0xA0))).decrypt(nonce, sealed, aad) == text
+    g = spending_key_generator()
+    encodings = [(g * JubjubFr(7 * i + 2)).to_bytes() for i in range(62)]
+    encodings += [(SCALAR_MODULUS + 1).to_bytes(32, "little"), b"\x00" * 31]
+    domain = SaplingDomain(TEST_NETWORK, 10)
+    on_card = _launched("fr_sqrt", lambda: domain.batch_epk(encodings))
+    assert on_card == domain.batch_epk(encodings, use_device=False)
+    assert [p is None for p, _ in on_card] == [False] * 62 + [True, True]
+
+
 CASES = (
     [(check_mont_mul, (name, w, form)) for name in SPECS for w in WIDTHS for form in mont_mul_forms(w)]
     + [(check_mont_inv, (name, w)) for name in SPECS for w in INV_WIDTHS]
@@ -400,7 +428,7 @@ CASES = (
     + [(check_jubjub_add, (w,)) for w in sorted(ADD_WIDTHS + [8])]
     + [(check_fr_sqrt, (w,)) for w in WIDTHS]
     + [(check_pedersen_fold, (w,)) for w in WIDTHS + [64, 4096]]
-    + [(check_card_proof, ())]
+    + [(check_card_proof, ()), (check_note_scan, ())]
 )
 
 

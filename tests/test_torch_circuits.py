@@ -54,6 +54,12 @@ COPIES = {
     "host/verifier.py": "masp_tpu/groth16/verifier.py",
     **{f"groth16/{m}.py": f"masp_tpu/groth16/{m}.py" for m in (
         "sapling_prover", "params_io", "local_prover")},
+    **{f"host/primitives/{m}.py": f"masp_tpu/primitives/{m}.py" for m in ("consensus", "memo", "ff1", "zip32")},
+    **{f"host/note_encryption/{m}.py": f"masp_tpu/note_encryption/{m}.py" for m in ("__init__", "sapling_domain")},
+    **{f"host/{m}.py": f"masp_tpu/utils/{m}.py" for m in ("borsh", "borsh_schema")},
+    **{f"host/transaction/{m}.py": f"masp_tpu/transaction/{m}.py" for m in (
+        "components/transparent", "components/transparent_builder", "txid", "components/sapling", "transaction",
+        "sighash", "fees", "components/sapling_builder", "builder", "borsh_io")},
 }
 # port file -> (its source, the functions copied from it)
 FUNCTION_COPIES = {
@@ -65,14 +71,21 @@ FUNCTION_COPIES = {
 DEPARTURES = {
     "host/native/__init__.py", "groth16/sapling_prover.py", "groth16/params_io.py",
     "groth16/local_prover.py"}
-# port import path -> source import path, the first match per import line
+# port import path -> source import path, the first match per import line;
+# the ciphers of host/crypto.py stand where the source imports `cryptography`
 IMPORTS = [
+    ("masp_tpu_torch.host.crypto import InvalidTag", "cryptography.exceptions import InvalidTag"),
+    ("masp_tpu_torch.host.crypto import ChaCha20Poly1305",
+     "cryptography.hazmat.primitives.ciphers.aead import ChaCha20Poly1305"),
+    ("masp_tpu_torch.host.crypto import Cipher", "cryptography.hazmat.primitives.ciphers import Cipher"),
     ("masp_tpu_torch.ops.pairing", "masp_tpu.ops.pairing_jax"),
     ("masp_tpu_torch.ops.pedersen", "masp_tpu.ops.pedersen_jax"),
     ("masp_tpu_torch.ops.jubjub", "masp_tpu.ops.jubjub_jax"),
     ("masp_tpu_torch.groth16.synthesis import add_input_constraints as _add_input_constraints",
      "masp_tpu.groth16.generator import _add_input_constraints"),
     ("masp_tpu_torch.host.encoding", "masp_tpu.utils.encoding"),
+    ("masp_tpu_torch.host import borsh", "masp_tpu.utils import borsh"),
+    ("masp_tpu_torch.host.borsh", "masp_tpu.utils.borsh"),
     ("masp_tpu_torch.host.verifier", "masp_tpu.groth16.verifier"),
     ("masp_tpu_torch.groth16.", "masp_tpu.groth16."),
     ("masp_tpu_torch.host.fields", "masp_tpu.fields"),
