@@ -31,13 +31,21 @@ Parameters: ZIP-32 keys, a 1,024-note tree and a conversion tree built on the
 card, a transaction of 2 Spends, 1 Convert and 3 Outputs through
 LocalTxProver.prove_jobs, its validation (and rejection when altered), its
 rebuild from stored build parameters, the decryption of its outputs, and a
-scan of 512 compact outputs through the device decompression.
+scan of 512 compact outputs through the device decompression. Phase "mesh",
+after "tx", drives the multi-device layer (parallel/mesh.py) on virtual
+meshes whose every position is the card: the sharded NTT at m = 2^17, the
+sharded sorted MSM of the real Spend's l and b_g2 queries (unsigned and
+signed digits), the real Spend proved with signed digits on both ladders and
+through create_proof_from_assembly(mesh=) on 4 positions, each proof equal
+to the single-device one, the lane-private Pippenger, and the multichip dry
+run.
 
     python3 chip_smoke.py             # everything (one card)
     python3 chip_smoke.py --kernels   # build, the proof path's kernel checks and the tools only
     python3 chip_smoke.py --circuits  # build and the real circuits only
     python3 chip_smoke.py --batch     # build, the real circuits and the bundle
     python3 chip_smoke.py --tx        # build, the real circuits and the wallet's transaction
+    python3 chip_smoke.py --mesh      # build, the real circuits and phase mesh
     python3 chip_smoke.py --jubjub    # build and phase jubjub only
     python3 chip_smoke.py --pairing   # build and phase pairing only
     python3 chip_smoke.py --profile   # also one profiled proof per configuration
@@ -232,6 +240,12 @@ TX_CONVERSIONS = 128
 TX_SCAN = 512
 TX_SEEDS = (b"chip_smoke tx rn", b"chip_smoke tx bp", b"chip_smoke tx vr")
 TX_FLIP = 100
+# phase mesh: the positions of the virtual meshes on the card (every position
+# the card): the mesh proof's and the sharded MSMs', the sharded NTT's; the
+# points of the lane-private Pippenger's check
+MESH_POSITIONS = 4
+MESH_NTT_POSITIONS = (4, 8)
+MESH_PIPPENGER = 1 << 12
 # the NTT stages (half-width h) at which the product's stage form is held and
 # timed: one row a butterfly group, a narrow group and the widest stage of
 # the 2^17-point transforms
@@ -2708,6 +2722,196 @@ def tx_phase(circuits: dict, dev, card: str) -> dict:
     return {"launches": launches, "times": times}
 
 
+# --- phase mesh: the multi-device layer on a virtual mesh of the card ------------------
+
+def _affine_point(group, row):
+    """A packed projective row (on any device) as a host point."""
+    from masp_tpu_torch.ops import weierstrass as W
+    from masp_tpu_torch.ops.projective import unpack_rows
+
+    dec = W.decode_g1_points if group == 1 else W.decode_g2_points
+    return dec(*unpack_rows(group, row.reshape(1, -1).cpu()))[0]
+
+
+def _timed(fn, warm: bool = False):
+    """fn() and its wall time, the card synchronised at both ends; with
+    ``warm``, after one untimed call (which builds the tables and constants
+    that a first call makes)."""
+    import torch
+
+    sync = torch.cuda.synchronize if torch.cuda.is_available() else (lambda: None)
+    if warm:
+        fn()
+    sync()
+    t0 = time.perf_counter()
+    out = fn()
+    sync()
+    return out, time.perf_counter() - t0
+
+
+def mesh_phase(circuits: dict, dev, rng, card: str) -> dict:
+    """Phase mesh: parallel/mesh.py, the signed digits, the lane-private
+    Pippenger and the prover's mesh= route on the card, at the real Spend's
+    width, on virtual meshes whose every position is the card (one card;
+    each exchange a device-to-device copy). 1. sharded_ntt at m = 2^17 on
+    MESH_NTT_POSITIONS positions, forward and inverse, equal to Domain.fft /
+    ifft limb for limb. 2. sharded_sorted_msm of the real Spend's l query
+    (G1, 2^17 rows) and b_g2 (G2, 2^16 rows) on MESH_POSITIONS positions at
+    c = 8, unsigned and signed, every position with the same limbs, equal as
+    points to the single-device sorted_msm_from_limbs. 3. the real Spend
+    proved with MASP_MSM_SIGNED on, on the scan ladder and on the
+    batch-affine one, each proof byte-equal to the unsigned proof of the same
+    witness and (r, s), and verified. 4. the real Spend through
+    create_proof_from_assembly(mesh=) on MESH_POSITIONS positions, after a
+    warm-up, with the launch counts zeroed just before it and the stage
+    spans, beside a single-device proof's: byte-equal, verified, every scan
+    kernel launched. 5. pippenger_msm of MESH_PIPPENGER G1 points at c = 8,
+    64 lanes, equal to sorted_msm. 6. multichip's entry and
+    dryrun_multichip(8) (which runs mesh_prover_check) on 8 positions of the
+    card. Returns the mesh proof's launches."""
+    import torch
+
+    from masp_tpu_torch.groth16 import prover as TP
+    from masp_tpu_torch.groth16.domain import Domain
+    from masp_tpu_torch.groth16.synthesis import synthesize_witness
+    from masp_tpu_torch.host.bls12_381 import R
+    from masp_tpu_torch.host.structures import prepare_verifying_key
+    from masp_tpu_torch.host.verifier import verify_proof
+    from masp_tpu_torch.kernels import LAUNCHES, reset_launches
+    from masp_tpu_torch.ops import field as F
+    from masp_tpu_torch.ops import msm as M
+    from masp_tpu_torch.ops import msm_sorted as MS
+    from masp_tpu_torch.ops import weierstrass as W
+    from masp_tpu_torch.ops.field import FR
+    from masp_tpu_torch.parallel import mesh as PM
+    from masp_tpu_torch.tools import multichip
+    from masp_tpu_torch.tools.fixtures import fixture
+    from masp_tpu_torch.utils import tracing
+
+    t_phase = time.perf_counter()
+    params = circuits["spend"]["params"]
+    m = len(params.h) + 1
+
+    def fr_rows(n, mont=True):
+        return torch.as_tensor(F.encode(FR, [rng.randrange(R) for _ in range(n)], mont=mont).astype(np.int32),
+                               device=dev)
+
+    def placed(sh, label):
+        for p in sh.mesh.local_positions():
+            if sh.shards[p].device != sh.mesh.device(p):
+                raise AssertionError(f"[mesh] {label}: position {p}'s shard is on {sh.shards[p].device}")
+        return sh
+
+    # 1. the sharded NTT at full width
+    dom = Domain(m, device=dev)
+    x = fr_rows(m)
+    (want_f, want_i), single_s = _timed(lambda: (dom.fft(x), dom.ifft(x)), warm=True)
+    for n in MESH_NTT_POSITIONS:
+        mesh = PM.make_mesh(n, devices=[dev] * n)
+        fwd, fwd_s = _timed(lambda: PM.gather(placed(PM.sharded_ntt(mesh, dom, x, axis="msm"), "ntt")), warm=True)
+        inv, inv_s = _timed(lambda: PM.gather(placed(PM.sharded_ntt(mesh, dom, x, axis="msm", inverse=True),
+                                                     "intt")), warm=True)
+        if not (torch.equal(fwd, want_f) and torch.equal(inv, want_i)):
+            raise AssertionError(f"[mesh] sharded_ntt on {n} positions differs from Domain.fft / ifft")
+        log(f"[mesh] sharded_ntt m=2^{m.bit_length() - 1} on {n} positions of the card: forward {1e3 * fwd_s:.2f} ms, "
+            f"inverse {1e3 * inv_s:.2f} ms (Domain.fft + ifft {1e3 * single_s:.2f} ms), each after a warm-up call, "
+            f"equal limb for limb, on {card}")
+
+    # 2. the sharded sorted MSM on the real Spend's l and b_g2 queries
+    mesh = PM.make_mesh(MESH_POSITIONS, devices=[dev] * MESH_POSITIONS)
+    for q, group in (("l", 1), ("b_g2", 2)):
+        fops = W.G1Ops if group == 1 else W.G2Ops
+        pk = torch.as_tensor(TP._pad_pow2(params.rows(q), group == 2), device=dev)
+        limbs = fr_rows(pk.shape[0], mont=False)
+        pts = {}
+        for signed in (False, True):
+            out, mesh_s = _timed(lambda: placed(PM.sharded_sorted_msm(mesh, fops, pk, limbs, 8, axis="msm",
+                                                                      from_limbs=True, signed=signed), q), warm=True)
+            single, single_s = _timed(lambda: MS.sorted_msm_from_limbs(fops, pk, limbs, 8, signed=signed), warm=True)
+            rows = [out.shards[p] for p in mesh.local_positions()]
+            if not all(torch.equal(r, rows[0]) for r in rows):
+                raise AssertionError(f"[mesh] {q}: the positions hold different limbs after the butterfly")
+            pts[signed] = _affine_point(group, rows[0])
+            if pts[signed] != _affine_point(group, single):
+                raise AssertionError(f"[mesh] {q}: the sharded MSM (signed={signed}) differs from the single one")
+            log(f"[mesh] sharded_sorted_msm {q} ({pk.shape[0]} rows, G{group}, c=8, signed={signed}) on "
+                f"{MESH_POSITIONS} positions: {1e3 * mesh_s:.2f} ms, single device {1e3 * single_s:.2f} ms, each "
+                f"after a warm-up call; equal as points, every position the same limbs, on {card}")
+        if pts[False] != pts[True]:
+            raise AssertionError(f"[mesh] {q}: signed and unsigned MSMs differ")
+
+    # 3. signed proofs on both ladders, against the unsigned proofs
+    pvk = prepare_verifying_key(params.vk)
+    make, publics = fixture("spend")
+    wasm, route = synthesize_witness(make())
+    r, s = rng.randrange(1, 1 << 250), rng.randrange(1, 1 << 250)
+    signed0, affine0 = TP.MSM_SIGNED, MS.AFFINE_LADDER
+    try:
+        for affine in (False, True):
+            MS.AFFINE_LADDER = affine
+            proofs = {}
+            for signed in (False, True):
+                TP.MSM_SIGNED = signed
+                proofs[signed], secs = _timed(lambda: TP.create_proof_from_assembly(wasm, params, r, s, device=dev))
+                log(f"[mesh] Spend proof, {'affine' if affine else 'scan'} ladder, signed={signed}: "
+                    f"{1e3 * secs:.2f} ms on {card}")
+            if proofs[True].write() != proofs[False].write() or not verify_proof(pvk, proofs[True], publics):
+                raise AssertionError(f"[mesh] the signed proof ({'affine' if affine else 'scan'} ladder) differs "
+                                     f"from the unsigned one or fails verify_proof")
+    finally:
+        TP.MSM_SIGNED, MS.AFFINE_LADDER = signed0, affine0
+    log("[mesh] signed proofs on both ladders equal the unsigned proofs byte for byte and verify")
+
+    # 4. the mesh proof beside the single-device proof
+    TP.create_proof_from_assembly(wasm, params, r, s, mesh=mesh)  # warm-up: the sharded queries
+    tracing.enable()
+    tracing.reset()
+    reset_launches()
+    mesh_proof, mesh_s = _timed(lambda: TP.create_proof_from_assembly(wasm, params, r, s, mesh=mesh))
+    launches = dict(LAUNCHES)
+    mesh_stages = tracing.report()
+    TP.create_proof_from_assembly(wasm, params, r, s, device=dev)  # warm-up: the single-device queries
+    tracing.reset()
+    single_proof, single_s = _timed(lambda: TP.create_proof_from_assembly(wasm, params, r, s, device=dev))
+    single_stages = tracing.report()
+    tracing.enable(False)
+    log(f"[mesh] Spend proof on {MESH_POSITIONS} positions of the card: {1e3 * mesh_s:.2f} ms; single device "
+        f"{1e3 * single_s:.2f} ms, on {card}")
+    for name in dict.fromkeys([*single_stages, *mesh_stages]):
+        log(f"[mesh]   stage {name}: mesh {_per_proof(mesh_stages, name, 1)}, single "
+            f"{_per_proof(single_stages, name, 1)} (host / stream ms)")
+    log(f"[mesh] launches of the mesh proof: {json.dumps({k: v for k, v in launches.items() if v})}")
+    if mesh_proof.write() != single_proof.write() or not verify_proof(pvk, mesh_proof, publics):
+        raise AssertionError("[mesh] the mesh proof differs from the single-device proof or fails verify_proof")
+    for name in SCAN_KERNELS:
+        if launches[name] <= 0:
+            raise AssertionError(f"[mesh] kernel {name} was not launched by the mesh proof")
+    log("[mesh] the mesh proof equals the single-device proof byte for byte and verifies")
+
+    # 5. the lane-private Pippenger against the sorted MSM
+    pk = torch.as_tensor(params.rows("l")[:MESH_PIPPENGER], device=dev)
+    digits = MS.windows_from_limbs(fr_rows(MESH_PIPPENGER, mont=False), 8)
+    xyz = tuple(pk[:, i * 24 : (i + 1) * 24] for i in range(3))
+    pip, pip_s = _timed(lambda: M.pippenger_msm(W.G1Ops, xyz, digits, 8, lanes=64), warm=True)
+    srt, srt_s = _timed(lambda: MS.sorted_msm(W.G1Ops, pk, digits, 8), warm=True)
+    if _affine_point(1, torch.cat([c.reshape(-1) for c in pip])) != _affine_point(1, srt):
+        raise AssertionError("[mesh] pippenger_msm differs from sorted_msm")
+    log(f"[mesh] pippenger_msm {MESH_PIPPENGER} G1 points c=8 64 lanes: {1e3 * pip_s:.2f} ms, sorted_msm "
+        f"{1e3 * srt_s:.2f} ms, each after a warm-up call, equal as points, on {card}")
+
+    # 6. the tools' entry and dry run on 8 positions of the card
+    fn, args = multichip.entry(dev)
+    point, entry_s = _timed(lambda: fn(*args))
+    if not W.decode_g1_points(*(c.cpu()[None] for c in point))[0].is_on_curve():
+        raise AssertionError("[mesh] multichip.entry's MSM is not a curve point")
+    t0 = time.perf_counter()
+    multichip.dryrun_multichip(8, devices=[dev] * 8)
+    log(f"[mesh] multichip entry {1e3 * entry_s:.2f} ms; dryrun_multichip(8) and mesh_prover_check "
+        f"{time.perf_counter() - t0:.2f} s on 8 positions of the card; phase mesh {time.perf_counter() - t_phase:.1f} s "
+        f"on {card}")
+    return {"launches": launches, "mesh_s": mesh_s, "single_s": single_s}
+
+
 # --- main ------------------------------------------------------------------------------
 
 def ptxas_report(build) -> dict:
@@ -2878,12 +3082,14 @@ def main(argv) -> int:
         print(card)
         print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": 1}}))
         return 0
-    if "--circuits" in argv or "--batch" in argv or "--tx" in argv:
+    if "--circuits" in argv or "--batch" in argv or "--tx" in argv or "--mesh" in argv:
         circuits = circuits_phase(dev, rng, card, "--profile" in argv)
         if "--batch" in argv:
             batch_phase(circuits, dev, card)
         if "--tx" in argv:
             tx_phase(circuits, dev, card)
+        if "--mesh" in argv:
+            mesh_phase(circuits, dev, rng, card)
         print(card)
         print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": 1}}))
         return 0
@@ -2943,6 +3149,7 @@ def main(argv) -> int:
     circuits = circuits_phase(dev, rng, card, "--profile" in argv)
     batch = batch_phase(circuits, dev, card)
     tx = tx_phase(circuits, dev, card)
+    mesh = mesh_phase(circuits, dev, rng, card)
     jubjub = jubjub_phase(dev, rng, card)
     pairing = pairing_phase(dev, rng, card, "--profile" in argv)
     kern.update(jubjub["kernels"])
@@ -2965,7 +3172,8 @@ def main(argv) -> int:
     # holds each configuration's and each real circuit's launches over its
     # timed proofs, the bundle's at window 2, the default ("batch"), the
     # wallet's transaction path, summed over phase tx's steps ("tx"), the
-    # Jubjub path's ("jubjub") and the device pairing's product checks
+    # mesh proof of phase mesh ("mesh"), the Jubjub path's ("jubjub") and the
+    # device pairing's product checks
     # ("pairing"; the tools' kernels have this entry alone);
     # "widest" is a leaf add's pairs and ms at the main path's widest leaf
     # launch; a product's "forms" (ms through F.mont_mul and
@@ -2991,8 +3199,8 @@ def main(argv) -> int:
         "launches_by_path": {"pairing": pairing["launches"][name]} if name in TOOL_KERNELS else {
             **{label: launches[label][name] for label in order},
             **{kind: c["launches"][name] for kind, c in circuits.items()},
-            "batch": batch[BATCH_WINDOWS[-1]][name], "tx": tx["launches"][name], "jubjub": jubjub["launches"][name],
-            "pairing": pairing["launches"][name]},
+            "batch": batch[BATCH_WINDOWS[-1]][name], "tx": tx["launches"][name], "mesh": mesh["launches"][name],
+            "jubjub": jubjub["launches"][name], "pairing": pairing["launches"][name]},
         "max_abs_err": k["max_abs_err"], "ms": k["ms"],
         "eager_ms": k["eager_ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
         "bound_by": k["bound_by"], "library_ms": k.get("library_ms"), "bytes": k["bytes"],

@@ -1,12 +1,17 @@
 """Groth16 prover, main path: witness -> NTT quotient -> MSMs -> proof.
 
 Port of masp_tpu/groth16/prover.py in its accelerator configuration: window
-c = 8, unsigned digits extracted on the device from the witness limbs, the
-boolean split of the l/a/b queries, the on-device a/b/c evaluation, and the
-sorted MSM on the projective scan ladder with the sequential bucket
-reduction (``ops.msm_sorted.AFFINE_LADDER``; set it True for the reference
-accelerator's batch-affine ladder with the wide reduction, which the H100
-runs slower). A proof is enqueued on the current CUDA stream, its inputs
+c = 8, unsigned digits extracted on the device from the witness limbs
+(balanced signed digits with MASP_MSM_SIGNED=1), the boolean split of the
+l/a/b queries, the on-device a/b/c evaluation (on the host with
+MASP_ABC_DEVICE=0), and the sorted MSM on the projective scan ladder with
+the sequential bucket reduction (``ops.msm_sorted.AFFINE_LADDER``; set it
+True for the reference accelerator's batch-affine ladder with the wide
+reduction, which the H100 runs slower). With a ``mesh``
+(parallel/mesh.py), every NTT runs element-sharded and the five MSMs
+point-sharded over its "msm" axis, as the reference's ``mesh=`` route: the
+a/b/c values come from the host, no query is split, and the proof is the
+single-device proof byte for byte. A proof is enqueued on the current CUDA stream, its inputs
 copied in from pinned host memory, its five query results made affine on the
 device and copied out into pinned host memory, all without waiting; then it
 is drained: the host waits for its copies and assembles the proof. The batch
@@ -30,6 +35,7 @@ from masp_tpu_torch.groth16 import synthesis as S
 from masp_tpu_torch.groth16.domain import Domain
 from masp_tpu_torch.groth16.generator import coeff_ints, densities
 from masp_tpu_torch.groth16.params import Assembly, Parameters
+from masp_tpu_torch.host import native
 from masp_tpu_torch.host.bls12_381 import R
 from masp_tpu_torch.host.rng import random_scalar
 from masp_tpu_torch.host.structures import Proof
@@ -40,6 +46,7 @@ from masp_tpu_torch.ops.field import FR
 from masp_tpu_torch.ops.limbs import normalize
 from masp_tpu_torch.ops.msm import identity_rows
 from masp_tpu_torch.ops.projective import unpack_rows
+from masp_tpu_torch.parallel import mesh as PM
 from masp_tpu_torch.utils.tracing import span
 
 
@@ -50,9 +57,11 @@ def msm_flags(env) -> dict:
     count is a power of two); MASP_MSM_SPLIT ("1"), the boolean split of the
     l/a/b queries; MASP_MSM_SPLIT_MIN (32768), the bit wires a query needs
     for its split (Spend: 50-68k per query; Output and Convert: 17-24k,
-    where the split does not pay); MASP_ABC_DEVICE ("1"), the a/b/c values
-    on the device. A value of these, or of MASP_MSM_SIGNED,
-    MASP_MSM_FUSED, MASP_MSM_BGMW_H, MASP_MSM (the sorted MSM),
+    where the split does not pay); MASP_MSM_SIGNED ("0"), balanced signed
+    digits ("1"; the digits are extracted on the device, so the reference's
+    condition holds); MASP_ABC_DEVICE ("1"), the a/b/c values on the device
+    ("0": on the host, through the native evaluator). A value of these, or
+    of MASP_MSM_FUSED, MASP_MSM_BGMW_H, MASP_MSM (the sorted MSM),
     MASP_MSM_STACK (the stacked MSMs, "0") or MASP_MSM_FROM_LIMBS (digits
     on the device, "1"), that the port does not implement raises
     ValueError. MASP_MSM_VMAP_WINDOWS (how XLA batches the windows) and the
@@ -62,17 +71,24 @@ def msm_flags(env) -> dict:
     c = int(env.get("MASP_MSM_C", "8"))
     if not 2 <= c <= 16:
         raise ValueError(f"MASP_MSM_C={c}: the window width must be 2 .. 16")
-    if MS.AFFINE_LADDER and not MS.affine_ladder_takes(MS.n_windows_for(c), 1):
-        raise ValueError(f"MASP_MSM_C={c}: {MS.n_windows_for(c)} windows, which the batch-affine ladder "
+    switches = {name: env.get(name, default) for name, default in (("MASP_MSM_SIGNED", "0"),
+                                                                   ("MASP_ABC_DEVICE", "1"))}
+    for name, value in switches.items():
+        if value not in ("0", "1"):
+            raise ValueError(f"{name}={value!r}: the port takes '0' or '1'")
+    signed = switches["MASP_MSM_SIGNED"] == "1"
+    n_windows = MS.n_windows_for(c, signed)
+    if MS.AFFINE_LADDER and not MS.affine_ladder_takes(n_windows, 1):
+        raise ValueError(f"MASP_MSM_C={c}: {n_windows} windows, which the batch-affine ladder "
                          f"cannot take (a power-of-two count is needed)")
-    for name, default, implemented in (("MASP_MSM_SIGNED", "0", "0"), ("MASP_MSM_FUSED", "0", "0"),
-                                       ("MASP_MSM_BGMW_H", "0", "0"), ("MASP_ABC_DEVICE", "1", "1"),
+    for name, default, implemented in (("MASP_MSM_FUSED", "0", "0"), ("MASP_MSM_BGMW_H", "0", "0"),
                                        ("MASP_MSM", "sorted", "sorted"), ("MASP_MSM_STACK", "0", "0"),
                                        ("MASP_MSM_FROM_LIMBS", "1", "1")):
         if env.get(name, default) != implemented:
             raise ValueError(f"{name}={env[name]!r} is not implemented in the port (it runs {implemented!r})")
     return {"MSM_C": c, "MSM_SPLIT": env.get("MASP_MSM_SPLIT", "1") == "1",
-            "MSM_SPLIT_MIN": int(env.get("MASP_MSM_SPLIT_MIN", "32768"))}
+            "MSM_SPLIT_MIN": int(env.get("MASP_MSM_SPLIT_MIN", "32768")), "MSM_SIGNED": signed,
+            "ABC_DEVICE": switches["MASP_ABC_DEVICE"] == "1"}
 
 
 _FLAGS = msm_flags(os.environ)
@@ -82,6 +98,10 @@ MSM_C = _FLAGS["MSM_C"]
 # and from how many structural bit wires
 MSM_SPLIT = _FLAGS["MSM_SPLIT"]
 MSM_SPLIT_MIN = _FLAGS["MSM_SPLIT_MIN"]
+# balanced signed digits in every full-width MSM
+MSM_SIGNED = _FLAGS["MSM_SIGNED"]
+# the a/b/c values on the device (else on the host; always so with a mesh)
+ABC_DEVICE = _FLAGS["ABC_DEVICE"]
 
 G1_QUERIES = ("h", "l", "a", "b_g1")
 # the fetch's groups: (group ops, queries, host decoder of affine limbs)
@@ -211,23 +231,36 @@ def _pad_pow2(rows: np.ndarray, g2: bool, floor_log2: int = 0) -> np.ndarray:
     return out
 
 
-def prepare_device_params(params: Parameters, device) -> None:
+def prepare_device_params(params: Parameters, device, mesh=None) -> None:
     """Copy every query to the device once, as packed rows padded with
-    identities to its own power of two (the padding changes no result)."""
-    dev = resolve_device(device)
-    if params.device.get("dev") == dev:
+    identities to its own power of two (the padding changes no result).
+    With a mesh, each query pads to at least the "msm" axis's size and is
+    placed sharded over that axis (``device`` is not read: the mesh names
+    the devices); the cache is keyed by the mesh's layout and cleared when
+    it changes."""
+    key = None if mesh is None else mesh.key
+    dev = resolve_device(device) if mesh is None else mesh.device(mesh.local_positions()[0])
+    if params.device.get("dev") == dev and params.device.get("mesh") == key:
         return
     params.device.clear()
     params.device["dev"] = dev
+    params.device["mesh"] = key
     for q in G1_QUERIES + ("b_g2",):
-        params.device[q] = torch.as_tensor(_pad_pow2(params.rows(q), q == "b_g2"), device=dev)
+        if mesh is None:
+            params.device[q] = torch.as_tensor(_pad_pow2(params.rows(q), q == "b_g2"), device=dev)
+        else:
+            rows = _pad_pow2(params.rows(q), q == "b_g2", (mesh.shape["msm"] - 1).bit_length())
+            params.device[q] = PM.shard(mesh, rows, "msm")
 
 
 def prepare_split_queries(params: Parameters, asm: Assembly) -> None:
     """Split l/a/b_g1/b_g2 into a {0,1}-scalar part and a full-width part by
     the structural boolean mask, where at least MSM_SPLIT_MIN exponents of a
     query are bit wires (and not all of them). Witness values are checked
-    against the mask at prove time."""
+    against the mask at prove time. Nothing is split for a mesh: its five
+    queries go whole through the sharded MSM."""
+    if params.device.get("mesh") is not None:
+        return
     st = _structure(params.device, asm)
     if params.device.get("split_key") == (st["key"], MSM_SPLIT, MSM_SPLIT_MIN):
         return
@@ -293,6 +326,45 @@ def _h_scalar_input(h_coeffs, m: int, n_g1: int):
     return out
 
 
+def _h_scalars_sharded(mesh, h, m: int, n_h: int):
+    """The h scalars of a mesh proof, on the h query's shard boundaries.
+    ``h`` holds the m coefficients sharded over "msm"; the query holds n_h
+    rows. Where n_h = m the NTT's chunks are the MSM's, and each position
+    converts its own chunk (the last position zeroes the dropped last
+    coefficient); else the m rows are gathered, padded and split again."""
+    D = mesh.shape["msm"]
+    if n_h != m:
+        return PM.shard(mesh, _h_scalar_input(PM.gather(h), m, n_h), "msm")
+
+    def local(p, v):
+        out = F.from_mont(FR, v)
+        if mesh.axis_index(p, "msm") == D - 1:
+            out[-1] = 0
+        return out
+
+    return PM.smap(local, h, axis="msm")
+
+
+def _host_abc(asm: Assembly, m: int) -> np.ndarray:
+    """(3, m, 16) int32 canonical 16-bit limbs of the per-constraint A, B
+    and C values, zero-padded to m, evaluated on the host: by the native
+    evaluator where it builds (the reference's _compute_abc_limbs), else in
+    Python integers."""
+    n = asm.num_constraints
+    if native.available():
+        vals = native.eval_lc_rows_native(np.ascontiguousarray(asm.indptr, dtype=np.int64),
+                                          np.ascontiguousarray(asm.var_idx, dtype=np.int64),
+                                          np.ascontiguousarray(asm.coeffs), np.ascontiguousarray(asm.assignment))
+    else:
+        from masp_tpu_torch.groth16.reference import host_abc
+        from masp_tpu_torch.groth16.synthesis import _u64x4
+
+        vals = _u64x4([v for part in host_abc(asm) for v in part])
+    out = np.zeros((3, m, FR.L), dtype=np.int32)
+    out[:, :n] = np.ascontiguousarray(vals).view("<u2").reshape(3, n, FR.L)
+    return out
+
+
 # --- MSMs ------------------------------------------------------------------------
 
 def _limbs(arr_u64: np.ndarray, n_padded: int) -> np.ndarray:
@@ -302,14 +374,17 @@ def _limbs(arr_u64: np.ndarray, n_padded: int) -> np.ndarray:
     return out
 
 
-def _host_inputs(params: Parameters, asm: Assembly, st: dict) -> dict:
+def _host_inputs(params: Parameters, asm: Assembly, st: dict, abc_on_device: bool) -> dict:
     """Every per-proof array the device needs, built on the host: the
-    witness limb rows, and per query the full-width scalar limb rows and,
-    when split, the bit column. Raises if a witness value violates the
-    boolean split."""
+    witness limb rows (``abc_on_device``) or the a/b/c values, and per query
+    the full-width scalar limb rows and, when split, the bit column. Raises
+    if a witness value violates the boolean split."""
     dev = params.device
     full_u64 = asm.assignment
-    out = {"v16": _limbs(full_u64, full_u64.shape[0])}
+    if abc_on_device:
+        out = {"v16": _limbs(full_u64, full_u64.shape[0])}
+    else:
+        out = {"abc": _host_abc(asm, st["m"])}
     scalars = {
         "l": full_u64[asm.num_inputs :],
         "a": full_u64[st["a_density"]],
@@ -347,7 +422,8 @@ def _msms(params: Parameters, inputs: dict, h_limbs):
                 pts, limbs = params.device[q + "_full"], inputs[q + "/limbs"]
             else:
                 pts, limbs = params.device[q], inputs[q + "/limbs"]
-            buckets = MS.window_buckets(fops, pts, MS.windows_from_limbs(limbs, MSM_C), MSM_C)
+            digits = MS.windows_from_limbs(limbs, MSM_C, MSM_SIGNED)
+            buckets = MS.window_buckets(fops, pts, digits, MSM_C, signed=MSM_SIGNED)
             if q == "b_g2":
                 out[q].append(MS.bucket_reduce_horner(fops, buckets[None], MSM_C)[0])
             else:
@@ -410,14 +486,31 @@ def _sum_parts(coords, n_parts: dict) -> dict:
     return res
 
 
-def _enqueue(asm: Assembly, params: Parameters, r: int, s: int, device) -> dict:
+def _mesh_msms(params: Parameters, mesh, inputs: dict, h_limbs) -> dict:
+    """Every MSM of a mesh proof, point-sharded over "msm" with the digits
+    extracted on each shard; each result is read from this process's first
+    position (the butterfly leaves it on every position)."""
+    dev = params.device["dev"]
+    out = {}
+    for q in G1_QUERIES + ("b_g2",):
+        fops = W.G2Ops if q == "b_g2" else W.G1Ops
+        with span(f"msm/{q}", dev):
+            limbs = h_limbs if q == "h" else inputs[q + "/limbs"]
+            point = PM.sharded_sorted_msm(mesh, fops, params.device[q], limbs, MSM_C, axis="msm",
+                                          from_limbs=True, signed=MSM_SIGNED)
+            out[q] = [point.first]
+    return out
+
+
+def _enqueue(asm: Assembly, params: Parameters, r: int, s: int, device, mesh=None) -> dict:
     """Enqueue one proof on the device, from its inputs' copies to the
     copies of its results, without waiting for the device; ``_drain``
-    finishes it."""
+    finishes it. With a mesh: the a/b/c values from the host, the sharded h
+    pipeline and the sharded MSMs."""
     if asm.assignment is None:
         raise ValueError("the assembly carries no witness")
     with span("setup"):
-        prepare_device_params(params, device)
+        prepare_device_params(params, device, mesh)
         prepare_split_queries(params, asm)
         dev = params.device["dev"]
         st = _structure(params.device, asm)
@@ -427,12 +520,21 @@ def _enqueue(asm: Assembly, params: Parameters, r: int, s: int, device) -> dict:
         dom = params.device.get("domain")
         if dom is None or dom.m != m:
             dom = params.device["domain"] = Domain(m, device=dev)
-    with span("inputs", dev):
-        inputs, staged = _to_device(_host_inputs(params, asm, st), dev)
-    with span("h_pipeline", dev):
-        h_coeffs = _abc_h(dom, st, inputs["v16"])
-        h_limbs = _h_scalar_input(h_coeffs, m, params.device["h"].shape[0])
-    parts = _msms(params, inputs, h_limbs)
+    if mesh is not None:
+        with span("inputs", dev):
+            inputs, staged = _host_inputs(params, asm, st, abc_on_device=False), []
+        with span("h_pipeline", dev):
+            abc = torch.from_numpy(inputs["abc"])
+            h_coeffs = PM.sharded_h_pipeline(mesh, dom, abc[0], abc[1], abc[2], axis="msm")
+            h_limbs = _h_scalars_sharded(mesh, h_coeffs, m, params.device["h"].shape[0])
+        parts = _mesh_msms(params, mesh, inputs, h_limbs)
+    else:
+        with span("inputs", dev):
+            inputs, staged = _to_device(_host_inputs(params, asm, st, ABC_DEVICE), dev)
+        with span("h_pipeline", dev):
+            h_coeffs = _abc_h(dom, st, inputs["v16"]) if ABC_DEVICE else h_pipeline(dom, inputs["abc"])
+            h_limbs = _h_scalar_input(h_coeffs, m, params.device["h"].shape[0])
+        parts = _msms(params, inputs, h_limbs)
     with span("fetch", dev):
         coords, event = _fetch_async(parts)
     return {"coords": coords, "event": event, "staged": staged, "r": r, "s": s,
@@ -456,19 +558,24 @@ def _drain(pending: dict) -> Proof:
 
 
 def create_proof_from_assembly(asm: Assembly, params: Parameters, r: int, s: int,
-                               device="cuda") -> Proof:
-    """Groth16 proof of the witness in ``asm`` with randomisers (r, s)."""
-    return _drain(_enqueue(asm, params, r, s, device))
+                               device="cuda", mesh=None) -> Proof:
+    """Groth16 proof of the witness in ``asm`` with randomisers (r, s). With
+    a mesh (parallel/mesh.py, with an "msm" axis) the five MSMs run
+    point-sharded and every NTT element-sharded over that axis; the proof is
+    the same."""
+    return _drain(_enqueue(asm, params, r, s, device, mesh))
 
 
-def create_proofs_from_assemblies(cs_list, params: Parameters, rs_list, device="cuda") -> list[Proof]:
+def create_proofs_from_assemblies(cs_list, params: Parameters, rs_list, device="cuda",
+                                  mesh=None) -> list[Proof]:
     """Groth16 proofs of several witnesses of one circuit against one
     Parameters, the i-th with randomisers rs_list[i]. At most
     MASP_BATCH_WINDOW proofs (2 by default) are in flight: proof i is drained
     (its wait and host assembly) only once the window is full, after the
     proofs behind it are enqueued, and the rest at the end. ``cs_list`` may
     be a lazy iterable, so that witness i + 1 is synthesised while proof i
-    runs. Every witness must have the parameters' domain (else ValueError)."""
+    runs. Every witness must have the parameters' domain (else ValueError).
+    ``mesh`` as in create_proof_from_assembly."""
     rs_list = list(rs_list)
     if not rs_list:
         return []
@@ -481,7 +588,7 @@ def create_proofs_from_assemblies(cs_list, params: Parameters, rs_list, device="
                              f"domain {m}: one domain per call")
         if len(pending) >= window:
             proofs.append(_drain(pending.pop(0)))
-        pending.append(_enqueue(asm, params, r, s, device))
+        pending.append(_enqueue(asm, params, r, s, device, mesh))
     while pending:
         proofs.append(_drain(pending.pop(0)))
     return proofs
@@ -511,5 +618,5 @@ __all__ = [
     "create_proof", "create_random_proof", "create_proof_from_assembly",
     "create_proofs_from_assemblies", "synthesize_witness", "prepare_device_params",
     "prepare_split_queries", "boolean_var_mask", "h_pipeline", "msm_flags", "MSM_C", "MSM_SPLIT",
-    "MSM_SPLIT_MIN",
+    "MSM_SPLIT_MIN", "MSM_SIGNED", "ABC_DEVICE",
 ]

@@ -1,10 +1,12 @@
 """Fixed-base scalar multiplication and shared MSM helpers.
 
-Port of the parts of masp_tpu/ops/msm.py that the prover and the parameter
-generator use: the identity rows, host digit extraction, the windowed
+Port of masp_tpu/ops/msm.py: the identity rows, host digit extraction,
+the device byte digits of Fr values (``fr_digits_device``), the windowed
 fixed-base table and ``fixed_base_scalarmuls`` (windowed table gathers plus
-one point-add kernel launch per window). The lane-private Pippenger of that
-module is not ported: the prover uses the sorted MSM (ops/msm_sorted.py).
+one point-add kernel launch per window), and the lane-private Pippenger
+(``pippenger_msm``, with its host helper ``pad_points_for_msm``), which the
+sharded Pippenger of parallel/mesh.py runs on each shard. The prover uses the
+sorted MSM (ops/msm_sorted.py).
 """
 
 from __future__ import annotations
@@ -54,6 +56,16 @@ def scalars_to_digits(scalars: list[int], c: int, num_bits: int = 255) -> np.nda
     return out
 
 
+def fr_digits_device(x_mont):
+    """Montgomery Fr limbs (N, 16) -> (N, 32) int64 byte digits (c = 8) of
+    the canonical values, on the limbs' device: no host round trip for an
+    NTT's output."""
+    from masp_tpu_torch.ops import field as F
+
+    canon = F.from_mont(F.FR, x_mont).to(torch.int64)  # canonical 16-bit limbs
+    return torch.stack([canon & 0xFF, canon >> 8], dim=-1).reshape(canon.shape[0], 32)
+
+
 def fixed_base_table(base, c: int = 8, num_bits: int = 256):
     """Host: windowed table T[w][k] = [k * 2^(c*w)] base (affine host
     points). Returns the nested list; encode with the caller's codec."""
@@ -92,5 +104,63 @@ def fixed_base_scalarmuls(fops, table_rows, digits):
     return acc
 
 
-__all__ = ["identity_rows", "scalars_to_digits", "fixed_base_table",
-           "encode_table", "fixed_base_scalarmuls"]
+# --- variable-base Pippenger -------------------------------------------------------
+
+def pippenger_msm(fops, points_xyz, digits, c: int, lanes: int = 64):
+    """sum_i [s_i] P_i by lane-private buckets.
+
+    points_xyz: the (X, Y, Z) coordinate tensors (N, ...) of
+    ops/weierstrass.py; digits (N, W) c-bit windows (``scalars_to_digits``).
+    N must be a multiple of ``lanes`` (pad with identities and zero digits:
+    ``pad_points_for_msm``). Each of the lanes owns a (W, 2^c) bucket
+    array; step s gathers, for every (lane, window), the bucket at the
+    digit of the lane's s-th point, adds the point to it in one group add
+    over lanes x W rows, and writes the rows back (no two (lane, window)
+    pairs collide within a step, so the writes need no accumulation). Then
+    the lanes combine in turn, the buckets reduce by the running suffix and
+    the windows by Horner with c doublings a window, the last undoubled
+    (``msm_sorted.bucket_reduce_horner``'s sequential form: the same adds in
+    the same order). Returns one projective point as coordinates without a
+    batch axis."""
+    from masp_tpu_torch.ops import msm_sorted as MS
+
+    N = points_xyz[0].shape[0]
+    if N % lanes:
+        raise ValueError(f"pad N to a multiple of lanes: {N} points, {lanes} lanes")
+    n_windows = digits.shape[1]
+    B = 1 << c
+    dev = points_xyz[0].device
+    rows = torch.cat([x.reshape(N, -1) for x in points_xyz], dim=1).to(torch.int32)
+    rl = rows.shape[1]
+    state = identity_rows(fops, (lanes, n_windows, B), dev)
+    lane_idx = torch.arange(lanes, device=dev)[:, None].expand(lanes, n_windows)
+    win_idx = torch.arange(n_windows, device=dev)[None, :].expand(lanes, n_windows)
+    d_steps = digits.to(device=dev, dtype=torch.int64).reshape(N // lanes, lanes, n_windows)
+    for s in range(N // lanes):
+        d = d_steps[s]
+        pts = rows[s * lanes : (s + 1) * lanes, None, :].expand(lanes, n_windows, rl)
+        new = MS._add(fops, state[lane_idx, win_idx, d], pts)
+        state.index_put_((lane_idx, win_idx, d), new)
+    acc = identity_rows(fops, (n_windows, B), dev)
+    for p in range(lanes):
+        acc = MS._add(fops, acc, state[p])
+    out = MS.bucket_reduce_horner(fops, acc[None], c, wide=False)[0]
+    k = rl // 3
+    return tuple(out[i * k : (i + 1) * k].reshape(fops.coord_shape) for i in range(3))
+
+
+def pad_points_for_msm(fops, encode_fn, points, scalars, lanes: int, c: int, num_bits: int = 255):
+    """Host helper: encode points and digits padded to a lane multiple."""
+    n = len(points)
+    pad = (-n) % lanes
+    if pad:
+        ident = type(points[0]).identity()
+        points = list(points) + [ident] * pad
+        scalars = list(scalars) + [0] * pad
+    coords = encode_fn(points)
+    digits = scalars_to_digits(scalars, c, num_bits)
+    return coords, digits
+
+
+__all__ = ["identity_rows", "scalars_to_digits", "fr_digits_device", "fixed_base_table",
+           "encode_table", "fixed_base_scalarmuls", "pippenger_msm", "pad_points_for_msm"]

@@ -3,11 +3,14 @@ the batch-affine ladder.
 
 Port of masp_tpu/ops/msm_sorted.py as the prover runs it (``window_buckets``
 and its flat form ``window_buckets_flat``, ``bucket_reduce_horner`` in its
-sequential and wide forms, ``masked_sum``), with unsigned in-graph digits.
+sequential and wide forms, ``masked_sum``), with digits extracted on the
+device, unsigned or balanced (``signed``: d in [-2^(c-1), 2^(c-1)], 2^(c-1) + 1
+buckets, the points of negative digits entering the ladder negated).
 Per c-bit window:
 
-1. sort the point indices by digit (stable: equal digits keep index order,
-   as jax.lax.sort_key_val does, so the bucket limbs match the reference);
+1. sort the point indices by digit (by |digit| when signed; stable: equal
+   keys keep index order, as jax.lax.sort_key_val does, so the bucket limbs
+   match the reference);
 2. gather the points into sorted order as packed rows;
 3. build a dyadic prefix tree over the sorted points with a halving ladder:
    with ``AFFINE_LADDER`` (the JAX package's accelerator default, off here), the
@@ -46,30 +49,55 @@ from masp_tpu_torch.ops.field import FQ
 from masp_tpu_torch.ops.msm import identity_rows
 
 
-def n_windows_for(c: int) -> int:
-    """Window count for 255-bit scalars: ceil(255 / c)."""
+def n_windows_for(c: int, signed: bool = False) -> int:
+    """Window count for 255-bit scalars: ceil(255 / c), plus, when
+    ``signed``, one all-carry window where the signed conversion's last
+    carry would not fit the top window's headroom (its top digit plus the
+    carry must stay <= 2^(c-1), so that it is never converted itself)."""
     if not 2 <= c <= 16:
         raise ValueError(f"window width out of range: {c}")
-    return -(-255 // c)
+    W_ = -(-255 // c)
+    if signed and (1 << (255 - c * (W_ - 1))) > (1 << (c - 1)):
+        W_ += 1
+    return W_
 
 
-def windows_from_limbs(limbs16, c: int):
-    """(N, 16) canonical 16-bit Fr limbs -> (N, W) int64 unsigned c-bit
-    window digits, W = n_windows_for(c)."""
+def windows_from_limbs(limbs16, c: int, signed: bool = False):
+    """(N, 16) canonical 16-bit Fr limbs -> (N, W) int64 c-bit window
+    digits, W = n_windows_for(c, signed). Unsigned digits lie in [0, 2^c);
+    with ``signed`` they are carried into the balanced form in one pass over
+    the windows, lowest first: a digit (plus the carry in) above 2^(c-1)
+    becomes d - 2^c and carries 1 into the next window."""
     dev = limbs16.device
 
     def build():
-        W_ = n_windows_for(c)
+        W_ = n_windows_for(c, signed)
         idx = np.minimum(np.arange(W_) * c // 16, 15)
         # only bits < 256 are real; positions past limb 15 alias limb 15
         valid = np.clip(256 - np.arange(W_) * c, 0, c)
         return tuple(torch.as_tensor(x, device=dev) for x in (
             idx, np.minimum(idx + 1, 15), np.arange(W_) * c % 16, (1 << valid) - 1))
 
-    lo_idx, hi_idx, off, wmask = device_const(("windows", c, dev), build)
+    lo_idx, hi_idx, off, wmask = device_const(("windows", c, signed, dev), build)
     limbs = limbs16.to(torch.int64)
     pair = limbs[:, lo_idx] | (limbs[:, hi_idx] << 16)
-    return (pair >> off[None, :]) & wmask[None, :]
+    d = (pair >> off[None, :]) & wmask[None, :]
+    if not signed:
+        return d
+    half = 1 << (c - 1)
+    carry = torch.zeros_like(d[:, 0])
+    cols = []
+    for w in range(d.shape[1]):
+        dw = d[:, w] + carry
+        conv = dw > half
+        cols.append(torch.where(conv, dw - (1 << c), dw))
+        carry = conv.to(torch.int64)
+    return torch.stack(cols, dim=1)
+
+
+def n_buckets(c: int, signed: bool = False) -> int:
+    """Buckets a window: 2^c, or 2^(c-1) + 1 for balanced digits (|d| keys)."""
+    return (1 << (c - 1)) + 1 if signed else 1 << c
 
 
 def _g_neg(fops, rows):
@@ -115,16 +143,24 @@ def _levels(N: int) -> int:
     return levels
 
 
-def _sorted_windows(digits, c: int):
-    """perm (W, N): each window's point indices sorted by digit (stable);
-    bounds (W, B): bounds[w, k] = #{digits[:, w] <= k}, the exclusive prefix
-    boundary of bucket k."""
+def _sorted_windows(digits, c: int, signed: bool = False):
+    """perm (W, N): each window's point indices sorted by digit, by |digit|
+    when ``signed`` (stable); bounds (W, B): bounds[w, k] = #{keys[:, w] <=
+    k}, the exclusive prefix boundary of bucket k; signs (W, N), the sign of
+    each sorted point's digit (True where negative), or None unsigned."""
     n_windows = digits.shape[1]
-    B = 1 << c
+    B = n_buckets(c, signed)
     keys = digits.T.to(torch.int64).contiguous()  # (W, N)
+    if signed:
+        keys = keys.abs()
     sorted_keys, perm = torch.sort(keys, dim=1, stable=True)
     kvals = torch.arange(B, dtype=torch.int64, device=digits.device).expand(n_windows, B).contiguous()
-    return perm, torch.searchsorted(sorted_keys, kvals, right=True)
+    bounds = torch.searchsorted(sorted_keys, kvals, right=True)
+    # the signs are indexed by original point: gather them through the
+    # sorted permutation (the reference's flat ladder gathers them through its
+    # storage order; the port stores the natural sorted order)
+    signs = torch.gather(digits.T < 0, 1, perm) if signed else None
+    return perm, bounds, signs
 
 
 def _take(nodes, idx):
@@ -151,18 +187,22 @@ def _bucket_sums(fops, gather, bounds, levels: int):
     return _add(fops, acc, _g_neg(fops, qprev))
 
 
-def window_buckets(fops, points_packed, digits, c: int):
-    """Per-window bucket sums (W, B, rowlen), B = 2^c: the data-parallel bulk
-    of the MSM. points_packed (N, rowlen) with N a power of two (pad with
-    identity rows and zero digits); digits (N, W) unsigned. With the affine
-    ladder on this is ``window_buckets_flat``; else the projective scan
-    ladder, nodes[l][j] = the sum of sorted points [j 2^l, (j+1) 2^l)."""
+def window_buckets(fops, points_packed, digits, c: int, signed: bool = False):
+    """Per-window bucket sums (W, B, rowlen), B = n_buckets(c, signed): the
+    data-parallel bulk of the MSM. points_packed (N, rowlen) with N a power
+    of two (pad with identity rows and zero digits); digits (N, W), balanced
+    when ``signed`` (the points of negative digits enter the ladder
+    negated). With the affine ladder on this is ``window_buckets_flat``; else
+    the projective scan ladder, nodes[l][j] = the sum of sorted points
+    [j 2^l, (j+1) 2^l)."""
     if _affine_on(fops):
-        return window_buckets_flat(fops, points_packed, digits, c)
+        return window_buckets_flat(fops, points_packed, digits, c, signed=signed)
     levels = _levels(points_packed.shape[0])
-    perm, bounds = _sorted_windows(digits, c)
+    perm, bounds, signs = _sorted_windows(digits, c, signed)
     # up-sweep over all windows at once; pairs never straddle windows
     cur = points_packed[perm.reshape(-1)]  # (W*N, rowlen)
+    if signed:
+        cur = torch.where(signs.reshape(-1, 1), _g_neg(fops, cur), cur)
     nodes = [cur]
     for lv in range(levels):
         cur = _halve(fops, cur, leaf01=lv == 0)
@@ -223,17 +263,19 @@ def bucket_reduce_horner(fops, buckets, c: int, wide: bool | None = None):
     return out
 
 
-def sorted_msm(fops, points_packed, digits, c: int):
+def sorted_msm(fops, points_packed, digits, c: int, signed: bool = False):
     """sum_i [s_i] P_i as one projective row (rowlen,). points_packed
-    (N, rowlen), N a power of two; digits (N, W) unsigned c-bit windows."""
-    buckets = window_buckets(fops, points_packed, digits, c)
+    (N, rowlen), N a power of two; digits (N, W) c-bit windows, balanced
+    when ``signed``."""
+    buckets = window_buckets(fops, points_packed, digits, c, signed=signed)
     return bucket_reduce_horner(fops, buckets[None], c)[0]
 
 
-def sorted_msm_from_limbs(fops, points_packed, limbs16, c: int):
+def sorted_msm_from_limbs(fops, points_packed, limbs16, c: int, signed: bool = True):
     """sorted_msm with digit extraction on the device from (N, 16)
-    canonical 16-bit limb rows of the scalars."""
-    return sorted_msm(fops, points_packed, windows_from_limbs(limbs16, c), c)
+    canonical 16-bit limb rows of the scalars; balanced signed digits by
+    default, as the reference's."""
+    return sorted_msm(fops, points_packed, windows_from_limbs(limbs16, c, signed), c, signed=signed)
 
 
 def masked_sum(fops, points_packed, bits):
@@ -331,13 +373,15 @@ def _lift(fops, rows):
     return torch.cat([rows[..., : 2 * k], z], dim=-1)
 
 
-def window_buckets_flat(fops, points_packed, digits, c: int):
+def window_buckets_flat(fops, points_packed, digits, c: int, signed: bool = False):
     """window_buckets on the batch-affine ladder: the lowest
     K = min(AFFINE_LEVELS, log2 N) levels affine over all windows' lanes at
     once, the levels above projective; the same prefix queries and bucket
     differences as the scan ladder, lifting the affine nodes' Z from their
-    flags. The affine levels need a power-of-two lane count W * N
-    (ValueError otherwise: c = 10 or 11 gives 26 or 24 windows)."""
+    flags. With ``signed`` the gathered rows' y is negated where the digit
+    is negative (x and the identity flag stay). The affine levels need a
+    power-of-two lane count W * N (ValueError otherwise: c = 10 or 11 gives
+    26 or 24 windows)."""
     N, rl = points_packed.shape
     n_windows = digits.shape[1]
     levels = _levels(N)
@@ -347,11 +391,15 @@ def window_buckets_flat(fops, points_packed, digits, c: int):
             f"the batch-affine ladder needs a power-of-two lane count, got {n_windows} windows x "
             f"{N} points (c = {c}): choose c with a power-of-two window count or set AFFINE_LADDER = False")
     k = rl // 3
-    perm, bounds = _sorted_windows(digits, c)
+    perm, bounds, signs = _sorted_windows(digits, c, signed)
     # affine source rows [x | y | f], f = (Z == 0): the flag rides the row gather
     inf = fops.is_zero(points_packed[:, 2 * k :].reshape((N,) + tuple(fops.coord_shape)))
     src = torch.cat([points_packed[:, : 2 * k], inf.to(torch.int32)[:, None]], dim=1)
     cur = src[perm.reshape(-1)]  # (W*N, 2k+1)
+    if signed:
+        y = cur[:, k : 2 * k]
+        ny = F.neg(FQ, y.reshape(-1, FQ.L)).reshape(y.shape)
+        cur = torch.cat([cur[:, :k], torch.where(signs.reshape(-1, 1), ny, y), cur[:, 2 * k :]], dim=1)
     aff = [cur]
     for _ in range(K):
         cur = _affine_halve(cur)
@@ -369,7 +417,7 @@ def window_buckets_flat(fops, points_packed, digits, c: int):
 
 
 __all__ = [
-    "n_windows_for", "windows_from_limbs", "window_buckets", "window_buckets_flat",
+    "n_windows_for", "n_buckets", "windows_from_limbs", "window_buckets", "window_buckets_flat",
     "bucket_reduce_horner", "sorted_msm", "sorted_msm_from_limbs",
     "masked_sum", "affine_ladder_takes", "ladder_flags", "AFFINE_LADDER", "AFFINE_LEVELS",
 ]

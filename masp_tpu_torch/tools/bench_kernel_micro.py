@@ -240,7 +240,8 @@ def main(device="cuda", rows: int = 1 << 17, points: int = 1 << 17, cs=(8, 10, 1
         ladder = "affine" if affine else "scan"
         default, MS.AFFINE_LADDER = MS.AFFINE_LADDER, affine
         try:
-            ms, _, out = time_ms(lambda c=c: MS.sorted_msm_from_limbs(W.G1Ops, mpk, limbs, c), dev, msm_iters)
+            ms, _, out = time_ms(lambda c=c: MS.sorted_msm_from_limbs(W.G1Ops, mpk, limbs, c, signed=False),
+                                 dev, msm_iters)
         finally:
             MS.AFFINE_LADDER = default
         if _g1_point(out) != want_pt:

@@ -281,5 +281,5 @@ def test_flat_buckets_and_msm_limbs_match_jax(monkeypatch):
         x.reshape((-1,) + x.shape[2:]) for x in jb))).reshape(tb.shape).astype(np.int32))
     jm = jax.jit(lambda p, s: MSJ.sorted_msm_from_limbs(WJ.G1Ops, p, s, 4, signed=False))(
         jnp.asarray(packed), jnp.asarray(limbs))
-    tm = MS.sorted_msm_from_limbs(W.G1Ops, _t(packed), _t(limbs), 4)
+    tm = MS.sorted_msm_from_limbs(W.G1Ops, _t(packed), _t(limbs), 4, signed=False)
     assert np.array_equal(tm.numpy(), np.concatenate([np.asarray(x) for x in jm]).astype(np.int32))

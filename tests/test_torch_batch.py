@@ -112,7 +112,7 @@ def test_batch_window_order(monkeypatch):
     lazy input yields each witness just before its proof is enqueued; no
     job gives []; a witness of another domain raises before it is enqueued."""
     events = []
-    monkeypatch.setattr(TP, "_enqueue", lambda asm, params, r, s, device: events.append(f"E{r}") or r)
+    monkeypatch.setattr(TP, "_enqueue", lambda asm, params, r, s, device, mesh: events.append(f"E{r}") or r)
     monkeypatch.setattr(TP, "_drain", lambda r: events.append(f"D{r}") or r)
     _, cubic = _witness(CubicCircuit(x=3))
     _, bits = _witness(BitsCircuit(_bits(5)))

@@ -12,7 +12,10 @@ on both ranges and ragged shapes) with the edge lanes first. The
 Montgomery product runs at each width in every operand
 form of the main path (strided and broadcast views, read in place) and on
 unaligned rows. One case proves a tiny circuit on the card and holds the
-proof against the port's CPU proof of the same witness; one holds the
+proof against the port's CPU proof of the same witness, and one proves it
+on a virtual mesh of two positions of the card (create_proof_from_assembly
+(mesh=)); one holds the signed digits and the signed sorted MSM on the card
+against their CPU runs; one holds the
 port's AEAD (host/crypto.py) against RFC 8439 and the note scan's device
 decompression (SaplingDomain.batch_epk at 64 encodings) against the host.
 
@@ -394,6 +397,56 @@ def check_card_proof(dev):
     assert verify_proof(prepare_verifying_key(params.vk), on_card, [35])
 
 
+def check_mesh_proof(dev):
+    """A tiny proof through create_proof_from_assembly(mesh=) on a virtual
+    mesh of 2 positions of the card (c = 4) equals the port's CPU proof of
+    the same witness and (r, s) byte for byte and verifies; every query
+    shard lies on the card."""
+    from masp_tpu_torch.parallel import mesh as PM
+
+    kcs = KeypairAssembly()
+    _Cubic().synthesize(kcs)
+    S.add_input_constraints(kcs)
+    params = TG.generate_parameters(S.assembly_from_cs(kcs), 11, 13, 17, 19, 23, device="cpu")
+    asm, _ = S.synthesize_witness(_Cubic(3), use_tape=False)
+    mesh = PM.make_mesh(2, devices=[dev] * 2)
+    c = TP.MSM_C
+    TP.MSM_C = 4
+    try:
+        before = LAUNCHES["g1_add"]
+        on_mesh = TG.create_proof_from_assembly(asm, params, 3, 4, mesh=mesh)
+        assert LAUNCHES["g1_add"] > before
+        for q in ("h", "l", "a", "b_g1", "b_g2"):
+            assert all(t.is_cuda for t in params.device[q].shards.values())
+        on_cpu = TG.create_proof_from_assembly(asm, params, 3, 4, device="cpu")
+    finally:
+        TP.MSM_C = c
+    assert on_mesh.write() == on_cpu.write()
+    assert verify_proof(prepare_verifying_key(params.vk), on_mesh, [35])
+
+
+def check_signed_digits(dev):
+    """Signed digits on the card: windows_from_limbs(signed=True) and the
+    signed sorted MSM (G1 and G2, c = 4 and 8, scan ladder) equal their CPU
+    runs limb for limb, with 0, 1 and r - 1 among the scalars."""
+    from masp_tpu_torch.ops import msm_sorted as MS
+
+    rng = random.Random(11)
+    scalars = [0, 1, SCALAR_MODULUS - 1] + [rng.randrange(SCALAR_MODULUS) for _ in range(13)]
+    limbs = torch.as_tensor(F.encode(FR, scalars, mont=False).astype(np.int32))
+    for group in (1, 2):
+        grp, enc = GROUPS[group]
+        pts = [grp.generator() * rng.randrange(1, 1 << 64) for _ in range(16)]
+        rows = _proj_rows(group, pts, "cpu")
+        fops = W.G1Ops if group == 1 else W.G2Ops
+        for c in (4, 8):
+            d_card = MS.windows_from_limbs(limbs.to(dev), c, signed=True)
+            assert torch.equal(d_card.cpu(), MS.windows_from_limbs(limbs, c, signed=True)), (group, c)
+            on_card = MS.sorted_msm_from_limbs(fops, rows.to(dev), limbs.to(dev), c, signed=True)
+            on_cpu = MS.sorted_msm_from_limbs(fops, rows, limbs, c, signed=True)
+            assert torch.equal(on_card.cpu(), on_cpu), (group, c)
+
+
 def check_note_scan(dev):
     """The port's AEAD (host/crypto.py, since the card machine need not have
     `cryptography`) against RFC 8439 §2.8.2, and SaplingDomain.batch_epk's
@@ -428,7 +481,7 @@ CASES = (
     + [(check_jubjub_add, (w,)) for w in sorted(ADD_WIDTHS + [8])]
     + [(check_fr_sqrt, (w,)) for w in WIDTHS]
     + [(check_pedersen_fold, (w,)) for w in WIDTHS + [64, 4096]]
-    + [(check_card_proof, ()), (check_note_scan, ())]
+    + [(check_card_proof, ()), (check_note_scan, ()), (check_mesh_proof, ()), (check_signed_digits, ())]
 )
 
 

@@ -173,7 +173,7 @@ def test_sorted_msm_and_masked_sum_match_host(ladder, group, n):
     packed = _t(_packed(group, pts))
     want = grp.identity()
     if group == 1:
-        got = MS.sorted_msm_from_limbs(fops, packed, _t(_limbs(scal)), C)
+        got = MS.sorted_msm_from_limbs(fops, packed, _t(_limbs(scal)), C, signed=False)
         for p, s in zip(pts, scal):
             want = want + p * s
     else:  # the lowest window's digit-weighted bucket sum
@@ -253,7 +253,7 @@ def test_msm_limbs_match_jax(monkeypatch):
         x.reshape((-1,) + x.shape[2:]) for x in jb))).reshape(tb.shape).astype(np.int32))
     jm = jax.jit(lambda p, s: MSJ.sorted_msm_from_limbs(WJ.G1Ops, p, s, C, signed=False))(
         jnp.asarray(packed), jnp.asarray(limbs))
-    tm = MS.sorted_msm_from_limbs(W.G1Ops, _t(packed), _t(limbs), C)
+    tm = MS.sorted_msm_from_limbs(W.G1Ops, _t(packed), _t(limbs), C, signed=False)
     assert np.array_equal(tm.numpy(), np.concatenate([np.asarray(x) for x in jm]).astype(np.int32))
     bits = np.asarray([s & 1 for s in scal], dtype=np.int8)
     js = jax.jit(lambda p, b: MSJ.masked_sum(WJ.G1Ops, p, b))(jnp.asarray(packed), jnp.asarray(bits))

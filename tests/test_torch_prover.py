@@ -197,14 +197,18 @@ def test_msm_flags_are_read_or_raise(monkeypatch):
     import subprocess
     import sys
 
-    assert TP.msm_flags({}) == {"MSM_C": 8, "MSM_SPLIT": True, "MSM_SPLIT_MIN": 32768}
+    assert TP.msm_flags({}) == {"MSM_C": 8, "MSM_SPLIT": True, "MSM_SPLIT_MIN": 32768, "MSM_SIGNED": False,
+                                "ABC_DEVICE": True}
     assert TP.msm_flags({"MASP_MSM_C": "4", "MASP_MSM_SPLIT": "0", "MASP_MSM_SPLIT_MIN": "2",
-                         "MASP_ABC_DEVICE": "1"}) == {"MSM_C": 4, "MSM_SPLIT": False, "MSM_SPLIT_MIN": 2}
+                         "MASP_ABC_DEVICE": "1"}) == {"MSM_C": 4, "MSM_SPLIT": False, "MSM_SPLIT_MIN": 2,
+                                                      "MSM_SIGNED": False, "ABC_DEVICE": True}
+    assert TP.msm_flags({"MASP_MSM_SIGNED": "1", "MASP_ABC_DEVICE": "0"}) == {
+        "MSM_C": 8, "MSM_SPLIT": True, "MSM_SPLIT_MIN": 32768, "MSM_SIGNED": True, "ABC_DEVICE": False}
     assert MS.ladder_flags({}) == (False, 4)
     assert MS.ladder_flags({"MASP_MSM_AFFINE": "1", "MASP_MSM_AFFINE_LEVELS": "2",
                             "MASP_MSM_WIDE_REDUCE": "1"}) == (True, 2)
-    for env in ({"MASP_MSM_SIGNED": "1"}, {"MASP_MSM_FUSED": "1"}, {"MASP_MSM_BGMW_H": "1"},
-                {"MASP_ABC_DEVICE": "0"}, {"MASP_MSM": "lanes"}, {"MASP_MSM_C": "17"},
+    for env in ({"MASP_MSM_SIGNED": "2"}, {"MASP_MSM_FUSED": "1"}, {"MASP_MSM_BGMW_H": "1"},
+                {"MASP_ABC_DEVICE": "yes"}, {"MASP_MSM": "lanes"}, {"MASP_MSM_C": "17"},
                 {"MASP_MSM_STACK": "1"}, {"MASP_MSM_FROM_LIMBS": "0"}):
         with pytest.raises(ValueError, match=next(iter(env)) + "="):
             TP.msm_flags(env)
@@ -216,12 +220,13 @@ def test_msm_flags_are_read_or_raise(monkeypatch):
     with pytest.raises(ValueError, match="26 windows"):
         TP.msm_flags({"MASP_MSM_C": "10"})
     code = ("from masp_tpu_torch.groth16 import prover as P; from masp_tpu_torch.ops import msm_sorted as M; "
-            "print(P.MSM_C, P.MSM_SPLIT, P.MSM_SPLIT_MIN, M.AFFINE_LADDER, M.AFFINE_LEVELS)")
+            "print(P.MSM_C, P.MSM_SPLIT, P.MSM_SPLIT_MIN, M.AFFINE_LADDER, M.AFFINE_LEVELS, P.MSM_SIGNED, "
+            "P.ABC_DEVICE)")
     env = {**os.environ, "MASP_MSM_C": "4", "MASP_MSM_SPLIT": "0", "MASP_MSM_SPLIT_MIN": "9",
-           "MASP_MSM_AFFINE": "1", "MASP_MSM_AFFINE_LEVELS": "3"}
+           "MASP_MSM_AFFINE": "1", "MASP_MSM_AFFINE_LEVELS": "3", "MASP_MSM_SIGNED": "1", "MASP_ABC_DEVICE": "0"}
     out = subprocess.run([sys.executable, "-c", code], env=env, cwd=REPO, capture_output=True, text=True,
                          timeout=300, check=True).stdout
-    assert out.split() == ["4", "False", "9", "True", "3"]
+    assert out.split() == ["4", "False", "9", "True", "3", "True", "False"]
 
     monkeypatch.setattr(MS, "AFFINE_LADDER", False)
     params, _ = _host_params(BitsCircuit())
