@@ -38,7 +38,12 @@ sharded sorted MSM of the real Spend's l and b_g2 queries (unsigned and
 signed digits), the real Spend proved with signed digits on both ladders and
 through create_proof_from_assembly(mesh=) on 4 positions, each proof equal
 to the single-device one, the lane-private Pippenger, and the multichip dry
-run.
+run. Phase "routes", after "mesh", proves the real Spend through each of the
+prover's routes (the default; digits from the host, MASP_MSM_FROM_LIMBS=0;
+the stacked G1 MSMs, MASP_MSM_STACK=1; the fused prove, MASP_MSM_FUSED=1; a
+BGMW table for h at c = 12, MASP_MSM_BGMW_H=1; the lane-private Pippenger,
+MASP_MSM=lanes), each proof verified and equal to the default one byte for
+byte, with its spans, launches and time.
 
     python3 chip_smoke.py             # everything (one card)
     python3 chip_smoke.py --kernels   # build, the proof path's kernel checks and the tools only
@@ -46,6 +51,7 @@ run.
     python3 chip_smoke.py --batch     # build, the real circuits and the bundle
     python3 chip_smoke.py --tx        # build, the real circuits and the wallet's transaction
     python3 chip_smoke.py --mesh      # build, the real circuits and phase mesh
+    python3 chip_smoke.py --routes    # build, the real circuits and phase routes
     python3 chip_smoke.py --jubjub    # build and phase jubjub only
     python3 chip_smoke.py --pairing   # build and phase pairing only
     python3 chip_smoke.py --profile   # also one profiled proof per configuration
@@ -243,6 +249,15 @@ TX_FLIP = 100
 # phase mesh: the positions of the virtual meshes on the card (every position
 # the card): the mesh proof's and the sharded MSMs', the sharded NTT's; the
 # points of the lane-private Pippenger's check
+# phase routes: the prover's routes, each with its variables (msm_flags
+# derives the module constants from them as the reference does); the
+# default first, whose proof the others must equal byte for byte
+ROUTES = [("default", {}), ("host_digits", {"MASP_MSM_FROM_LIMBS": "0"}), ("stacked", {"MASP_MSM_STACK": "1"}),
+          ("fused", {"MASP_MSM_FUSED": "1"}), ("bgmw_h", {"MASP_MSM_BGMW_H": "1", "MASP_MSM_BGMW_C": "12"}),
+          ("lanes", {"MASP_MSM": "lanes"})]
+# the kernels every route's proof must launch (the lanes route runs no leaf
+# add: no split and no prefix ladder)
+ROUTE_KERNELS = ["g1_add", "g2_add", "mont_mul_fr", "mont_mul_fq", "mont_inv_fq"]
 MESH_POSITIONS = 4
 MESH_NTT_POSITIONS = (4, 8)
 MESH_PIPPENGER = 1 << 12
@@ -2912,6 +2927,87 @@ def mesh_phase(circuits: dict, dev, rng, card: str) -> dict:
     return {"launches": launches, "mesh_s": mesh_s, "single_s": single_s}
 
 
+# --- phase routes: the prover's off-by-default MSM routes ------------------------------
+
+def routes_phase(circuits: dict, dev, rng, card: str) -> dict:
+    """Phase routes: the real Spend of phase circuits, one witness and one
+    (r, s), proved through every route of ROUTES on the card: the default,
+    host digits, the stacked G1 MSMs, the fused prove, BGMW for h at c = 12
+    and the lane-private Pippenger. Each route: one warm-up proof (it builds
+    the route's device layout), then one timed proof with the tracing spans
+    on and the launch counts zeroed just before it; both must pass the host
+    verifier and equal the default proof byte for byte, and the timed proof
+    must launch every kernel of ROUTE_KERNELS. For BGMW the table's build
+    time and memuse.device_usage(params) before and after it are logged. The
+    module constants are restored, and the parameters' device cache
+    cleared, in a finally. Returns each route's launches and times."""
+    import torch
+
+    from masp_tpu_torch.groth16 import prover as TP
+    from masp_tpu_torch.groth16.synthesis import synthesize_witness
+    from masp_tpu_torch.host.structures import prepare_verifying_key
+    from masp_tpu_torch.host.verifier import verify_proof
+    from masp_tpu_torch.kernels import LAUNCHES, reset_launches
+    from masp_tpu_torch.tools.fixtures import fixture
+    from masp_tpu_torch.utils import memuse, tracing
+
+    t_phase = time.perf_counter()
+    params = circuits["spend"]["params"]
+    pvk = prepare_verifying_key(params.vk)
+    make, publics = fixture("spend")
+    wasm, _ = synthesize_witness(make())
+    r, s = rng.randrange(1, 1 << 250), rng.randrange(1, 1 << 250)
+    saved = {k: getattr(TP, k) for k in TP.msm_flags({})}
+    out = {"launches": {}, "wall_s": {}, "stages": {}}
+    want = None
+    try:
+        for label, env in ROUTES:
+            for k, v in TP.msm_flags(env).items():
+                setattr(TP, k, v)
+            if label == "bgmw_h":
+                TP.MSM_BGMW_H = False
+                TP.prepare_device_params(params, dev)
+                before = memuse.device_usage(params)
+                TP.MSM_BGMW_H = True
+                _, build_s = _timed(lambda: TP.prepare_device_params(params, dev))
+                after = memuse.device_usage(params)
+                out["bgmw"] = {"build_s": build_s, "bytes_before": before, "bytes_after": after}
+                log(f"[routes] bgmw_h: table of {params.device['h_bgmw'].shape[0]} rows (c = {TP.MSM_BGMW_C}, "
+                    f"{TP.MSM_BGMW_C * (params.device['h_bgmw'].shape[0] // params.device['h'].shape[0] - 1)} "
+                    f"g1_add launches) built in {build_s:.4f} s; memuse.device_usage(params) {before} -> {after} "
+                    f"bytes (+{after - before}), on {card}")
+            warm, warm_s = _timed(lambda: TP.create_proof_from_assembly(wasm, params, r, s, device=dev))
+            tracing.enable()
+            tracing.reset()
+            reset_launches()
+            proof, wall_s = _timed(lambda: TP.create_proof_from_assembly(wasm, params, r, s, device=dev))
+            launches = dict(LAUNCHES)
+            stages = tracing.report()
+            tracing.enable(False)
+            if want is None:
+                want = proof.write()
+            for p in (warm, proof):
+                if p.write() != want or not verify_proof(pvk, p, publics):
+                    raise AssertionError(f"[routes] {label}: a proof differs from the default proof or fails "
+                                         f"verify_proof")
+            for name in ROUTE_KERNELS:
+                if launches[name] <= 0:
+                    raise AssertionError(f"[routes] {label}: kernel {name} was not launched")
+            out["launches"][label], out["wall_s"][label], out["stages"][label] = launches, wall_s, stages
+            log(f"[routes] {label}: proof {1e3 * wall_s:.2f} ms (warm-up {1e3 * warm_s:.2f} ms; layout "
+                f"{params.device['layout']}), equal to the default proof and verified, on {card}")
+            for name in stages:
+                log(f"[routes]   {label} stage {name}: {_per_proof(stages, name, 1)} (host / stream ms)")
+            log(f"[routes]   {label} launches: {json.dumps({k: v for k, v in launches.items() if v})}")
+    finally:
+        for k, v in saved.items():
+            setattr(TP, k, v)
+        params.device.clear()
+        tracing.enable(False)
+    log(f"[routes] phase routes {time.perf_counter() - t_phase:.1f} s on {card}")
+    return out
+
+
 # --- main ------------------------------------------------------------------------------
 
 def ptxas_report(build) -> dict:
@@ -3082,7 +3178,7 @@ def main(argv) -> int:
         print(card)
         print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": 1}}))
         return 0
-    if "--circuits" in argv or "--batch" in argv or "--tx" in argv or "--mesh" in argv:
+    if any(f in argv for f in ("--circuits", "--batch", "--tx", "--mesh", "--routes")):
         circuits = circuits_phase(dev, rng, card, "--profile" in argv)
         if "--batch" in argv:
             batch_phase(circuits, dev, card)
@@ -3090,6 +3186,8 @@ def main(argv) -> int:
             tx_phase(circuits, dev, card)
         if "--mesh" in argv:
             mesh_phase(circuits, dev, rng, card)
+        if "--routes" in argv:
+            routes_phase(circuits, dev, rng, card)
         print(card)
         print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": 1}}))
         return 0
@@ -3150,6 +3248,7 @@ def main(argv) -> int:
     batch = batch_phase(circuits, dev, card)
     tx = tx_phase(circuits, dev, card)
     mesh = mesh_phase(circuits, dev, rng, card)
+    routes = routes_phase(circuits, dev, rng, card)
     jubjub = jubjub_phase(dev, rng, card)
     pairing = pairing_phase(dev, rng, card, "--profile" in argv)
     kern.update(jubjub["kernels"])
@@ -3172,7 +3271,8 @@ def main(argv) -> int:
     # holds each configuration's and each real circuit's launches over its
     # timed proofs, the bundle's at window 2, the default ("batch"), the
     # wallet's transaction path, summed over phase tx's steps ("tx"), the
-    # mesh proof of phase mesh ("mesh"), the Jubjub path's ("jubjub") and the
+    # mesh proof of phase mesh ("mesh"), each route's timed proof of phase
+    # routes ("routes/<route>"), the Jubjub path's ("jubjub") and the
     # device pairing's product checks
     # ("pairing"; the tools' kernels have this entry alone);
     # "widest" is a leaf add's pairs and ms at the main path's widest leaf
@@ -3200,6 +3300,7 @@ def main(argv) -> int:
             **{label: launches[label][name] for label in order},
             **{kind: c["launches"][name] for kind, c in circuits.items()},
             "batch": batch[BATCH_WINDOWS[-1]][name], "tx": tx["launches"][name], "mesh": mesh["launches"][name],
+            **{f"routes/{label}": routes["launches"][label][name] for label, _ in ROUTES},
             "jubjub": jubjub["launches"][name], "pairing": pairing["launches"][name]},
         "max_abs_err": k["max_abs_err"], "ms": k["ms"],
         "eager_ms": k["eager_ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],

@@ -1,9 +1,7 @@
 # Copy of masp_tpu/groth16/params_io.py, verbatim apart from import paths and the
 # blocks marked below: a file's host Parameters become the port's (params_from_host)
-# where they are loaded, and go back (params_to_host) where they are written;
-# fetch_params and download_masp_parameters are left out (they need the source's
-# utils/downloadreader.py and utils/hashreader.py and a network). The port imports
-# nothing of masp_tpu.
+# where they are loaded, and go back (params_to_host) where they are written. The
+# port imports nothing of masp_tpu.
 """MASP parameter file management (masp_proofs/src/lib.rs): file names,
 BLAKE2b hashes, byte sizes, load/verify, download stub (this environment has
 no egress; tests/benches use freshly generated parameters, exactly like the
@@ -123,8 +121,93 @@ def load_parameters(
     )
 
 
-# departs from the source: fetch_params and download_masp_parameters are left out
-# end of departure
+def fetch_params(
+    name: str,
+    expected_hash: str,
+    expected_bytes: int,
+    timeout=None,
+    params_dir: pathlib.Path | None = None,
+    opener=None,
+) -> pathlib.Path:
+    """Download one parameter file if missing, and always verify size and
+    hash (lib.rs:143-209 fetch_params). The download streams through
+    HashReader to disk in 1 MiB chunks (never whole-file in memory,
+    lib.rs:216-262); a failed or corrupted download is deleted.
+
+    ``opener`` overrides the HTTP opener (tests; environments without
+    egress can point it at a local mirror)."""
+    from masp_tpu_torch.host.downloadreader import ResponseLazyReader, urllib_opener
+    from masp_tpu_torch.host.hashreader import HashReader
+
+    params_dir = params_dir or default_params_folder()
+    params_dir.mkdir(parents=True, exist_ok=True)
+    path = params_dir / name
+
+    if not path.exists():
+        if opener is None:
+            opener = urllib_opener(DOWNLOAD_URL + name, timeout=timeout)
+        reader = HashReader(ResponseLazyReader(opener))
+        try:
+            with open(path, "wb") as out:
+                # take(expected_bytes) semantics: never read past the
+                # expected size (DoS guard, lib.rs:247-248)
+                while reader.byte_count < expected_bytes:
+                    n = min(1024 * 1024, expected_bytes - reader.byte_count)
+                    chunk = reader.read(n)
+                    if not chunk:
+                        break
+                    out.write(chunk)
+            if reader.byte_count != expected_bytes:
+                raise ParameterError(
+                    f"{name}: downloaded {reader.byte_count} bytes, "
+                    f"expected {expected_bytes}"
+                )
+            digest = reader.into_hash()
+            if digest != expected_hash:
+                raise ParameterError(
+                    f"{name}: downloaded file hash {digest} does not match "
+                    f"expected {expected_hash}"
+                )
+        except BaseException:
+            path.unlink(missing_ok=True)  # never leave partial files behind
+            raise
+        return path
+
+    # existing file: verify size first (cheap), then streaming hash
+    verify_file_size(path, expected_bytes, name)
+    with open(path, "rb") as f:
+        reader = HashReader(f)
+        while reader.read(1024 * 1024):
+            pass
+    digest = reader.into_hash()
+    if digest != expected_hash:
+        raise ParameterError(
+            f"{name}: file hash {digest} does not match expected "
+            f"{expected_hash}; clean your MASP parameters directory"
+        )
+    return path
+
+
+def download_masp_parameters(timeout=None, params_dir=None, opener=None):
+    """Download the three MPC parameter files if needed and verify them
+    (lib.rs:121-141). Returns the three paths (spend, output, convert).
+
+    Note: this build environment has zero egress — pass ``opener`` (a
+    ``name -> () -> file-like`` factory) for a local mirror, or place
+    pre-fetched files in ``default_params_folder()``."""
+    paths = []
+    for name, h, b in (
+        (MASP_SPEND_NAME, MASP_SPEND_HASH, MASP_SPEND_BYTES),
+        (MASP_OUTPUT_NAME, MASP_OUTPUT_HASH, MASP_OUTPUT_BYTES),
+        (MASP_CONVERT_NAME, MASP_CONVERT_HASH, MASP_CONVERT_BYTES),
+    ):
+        paths.append(
+            fetch_params(
+                name, h, b, timeout=timeout, params_dir=params_dir,
+                opener=None if opener is None else opener(name),
+            )
+        )
+    return tuple(paths)
 
 
 # --- generated-parameter cache (test/bench path) ---------------------------
@@ -176,8 +259,6 @@ __all__ = [
     "MASP_SPEND_HASH", "MASP_OUTPUT_HASH", "MASP_CONVERT_HASH",
     "MASP_SPEND_BYTES", "MASP_OUTPUT_BYTES", "MASP_CONVERT_BYTES",
     "ParameterError", "default_params_folder", "verify_file_size",
-    # departs from the source: no download_masp_parameters
-    "load_parameters", "MASPParameters",
-    # end of departure
+    "load_parameters", "download_masp_parameters", "MASPParameters",
     "cached_test_params",
 ]

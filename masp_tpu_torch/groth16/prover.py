@@ -11,7 +11,12 @@ reduction, which the H100 runs slower). With a ``mesh``
 (parallel/mesh.py), every NTT runs element-sharded and the five MSMs
 point-sharded over its "msm" axis, as the reference's ``mesh=`` route: the
 a/b/c values come from the host, no query is split, and the proof is the
-single-device proof byte for byte. A proof is enqueued on the current CUDA stream, its inputs
+single-device proof byte for byte. The reference's off-by-default routes
+run too, each giving the same proof (``msm_flags``): digits from the host
+(MASP_MSM_FROM_LIMBS=0), the stacked G1 MSMs (MASP_MSM_STACK=1), the fused
+prove (MASP_MSM_FUSED=1), a BGMW table for h (MASP_MSM_BGMW_H=1) and the
+lane-private Pippenger (MASP_MSM=lanes); a mesh ignores the stacked, fused
+and BGMW routes. A proof is enqueued on the current CUDA stream, its inputs
 copied in from pinned host memory, its five query results made affine on the
 device and copied out into pinned host memory, all without waiting; then it
 is drained: the host waits for its copies and assembles the proof. The batch
@@ -19,8 +24,10 @@ prover keeps a window of proofs enqueued ahead of the one it drains.
 
 Departures from the reference that leave every result as it is: the
 windows of an MSM run batched (ops/msm_sorted.py), the three a/b/c NTTs run
-as one batch, and the bucket reduction of the four full-width G1 MSMs runs
-as one batch of four.
+as one batch, and the bucket reduction of the full-width G1 MSMs runs as
+one batch (of four, or three with the BGMW table for h). The reference's
+fused route is one XLA program; here it is the same work enqueued in one
+pass without waiting, as every route is.
 """
 
 from __future__ import annotations
@@ -44,63 +51,102 @@ from masp_tpu_torch.ops import msm_sorted as MS
 from masp_tpu_torch.ops import weierstrass as W
 from masp_tpu_torch.ops.field import FR
 from masp_tpu_torch.ops.limbs import normalize
-from masp_tpu_torch.ops.msm import identity_rows
+from masp_tpu_torch.ops.msm import fr_digits_device, identity_rows, pippenger_msm
 from masp_tpu_torch.ops.projective import unpack_rows
 from masp_tpu_torch.parallel import mesh as PM
 from masp_tpu_torch.utils.tracing import span
 
 
-def msm_flags(env) -> dict:
-    """The prover's MSM configuration from the JAX package's variables, with
-    the port's defaults: MASP_MSM_C, the window width of the full-width MSMs
-    (8; 2 .. 16, and on the batch-affine ladder only widths whose window
-    count is a power of two); MASP_MSM_SPLIT ("1"), the boolean split of the
-    l/a/b queries; MASP_MSM_SPLIT_MIN (32768), the bit wires a query needs
-    for its split (Spend: 50-68k per query; Output and Convert: 17-24k,
-    where the split does not pay); MASP_MSM_SIGNED ("0"), balanced signed
-    digits ("1"; the digits are extracted on the device, so the reference's
-    condition holds); MASP_ABC_DEVICE ("1"), the a/b/c values on the device
-    ("0": on the host, through the native evaluator). A value of these, or
-    of MASP_MSM_FUSED, MASP_MSM_BGMW_H, MASP_MSM (the sorted MSM),
-    MASP_MSM_STACK (the stacked MSMs, "0") or MASP_MSM_FROM_LIMBS (digits
-    on the device, "1"), that the port does not implement raises
-    ValueError. MASP_MSM_VMAP_WINDOWS (how XLA batches the windows) and the
-    pairing's MASP_PAIR_MILLER_CHUNK and MASP_PAIR_EXP_CHUNK (how long one
-    XLA program is) have no effect in the port: it runs every window in one
-    batch and the pairing as it goes."""
-    c = int(env.get("MASP_MSM_C", "8"))
+def _switch(env, name: str, default: str) -> bool:
+    value = env.get(name, default)
+    if value not in ("0", "1"):
+        raise ValueError(f"{name}={value!r}: the port takes '0' or '1'")
+    return value == "1"
+
+
+def _width(env, name: str, default: str) -> int:
+    c = int(env.get(name, default))
     if not 2 <= c <= 16:
-        raise ValueError(f"MASP_MSM_C={c}: the window width must be 2 .. 16")
-    switches = {name: env.get(name, default) for name, default in (("MASP_MSM_SIGNED", "0"),
-                                                                   ("MASP_ABC_DEVICE", "1"))}
-    for name, value in switches.items():
-        if value not in ("0", "1"):
-            raise ValueError(f"{name}={value!r}: the port takes '0' or '1'")
-    signed = switches["MASP_MSM_SIGNED"] == "1"
+        raise ValueError(f"{name}={c}: the window width must be 2 .. 16")
+    return c
+
+
+def msm_flags(env) -> dict:
+    """The prover's MSM configuration from the JAX package's variables,
+    derived as the reference derives them (masp_tpu/groth16/prover.py:28-95):
+    MASP_MSM_C (8), the window width of the full-width MSMs (2 .. 16; on the
+    batch-affine ladder only widths whose window count is a power of two);
+    MASP_MSM ("sorted": the sorted MSM; "lanes": the lane-private Pippenger
+    of ops/msm.py on MSM_LANES_G1 / MSM_LANES_G2 lanes); MASP_MSM_STACK ("1":
+    the four G1 MSMs as one ``sorted_msm_batch`` over a shared padding);
+    MASP_MSM_FROM_LIMBS ("1": digits extracted on the device from limb rows;
+    "0": digits from the host), in force only for the sorted MSM unstacked;
+    MASP_MSM_SIGNED ("1": balanced signed digits), only with FROM_LIMBS;
+    MASP_MSM_SPLIT ("1") and MASP_MSM_SPLIT_MIN (32768), the boolean split of
+    the l/a/b queries and the bit wires a query needs for it (Spend: 50-68k
+    per query; Output and Convert: 17-24k), only for the sorted MSM
+    unstacked; MASP_MSM_FUSED ("1": the whole proof enqueued at once, the
+    a/b/c values from the host, split halves summed on the device, 5 points
+    fetched), only with FROM_LIMBS; MASP_MSM_BGMW_H ("1": the h query over a
+    fixed-base table) at MASP_MSM_BGMW_C (12; 2 .. 16), only for the sorted
+    MSM with FROM_LIMBS; MASP_ABC_DEVICE ("1": the a/b/c values on the
+    device; "0": on the host, through the native evaluator). A value the port
+    does not take raises ValueError: a switch other than "0" or "1", MASP_MSM
+    other than sorted or lanes (the reference runs any other as lanes), a
+    width out of range, and digits from the host (FROM_LIMBS off in effect)
+    at a width other than 4 or 8. MASP_MSM_VMAP_WINDOWS (how XLA batches the
+    windows) and the pairing's MASP_PAIR_MILLER_CHUNK and
+    MASP_PAIR_EXP_CHUNK (how long one XLA program is) have no effect in the
+    port: it runs every window in one batch and the pairing as it goes."""
+    c = _width(env, "MASP_MSM_C", "8")
+    impl = env.get("MASP_MSM", "sorted")
+    if impl not in ("sorted", "lanes"):
+        raise ValueError(f"MASP_MSM={impl!r}: the port takes 'sorted' or 'lanes'")
+    stack = _switch(env, "MASP_MSM_STACK", "0")
+    from_limbs = _switch(env, "MASP_MSM_FROM_LIMBS", "1") and impl == "sorted" and not stack
+    signed = _switch(env, "MASP_MSM_SIGNED", "0") and from_limbs
+    split = _switch(env, "MASP_MSM_SPLIT", "1") and impl == "sorted" and not stack
+    fused = _switch(env, "MASP_MSM_FUSED", "0") and from_limbs
+    bgmw_h = _switch(env, "MASP_MSM_BGMW_H", "0") and impl == "sorted" and from_limbs
+    bgmw_c = _width(env, "MASP_MSM_BGMW_C", "12")
+    abc_device = _switch(env, "MASP_ABC_DEVICE", "1")
+    if not from_limbs and c not in (4, 8):
+        raise ValueError(f"MASP_MSM_C={c}: digits from the host (MASP_MSM_FROM_LIMBS=0, MASP_MSM_STACK=1 or "
+                         f"MASP_MSM=lanes) take c = 4 or 8")
     n_windows = MS.n_windows_for(c, signed)
     if MS.AFFINE_LADDER and not MS.affine_ladder_takes(n_windows, 1):
         raise ValueError(f"MASP_MSM_C={c}: {n_windows} windows, which the batch-affine ladder "
                          f"cannot take (a power-of-two count is needed)")
-    for name, default, implemented in (("MASP_MSM_FUSED", "0", "0"), ("MASP_MSM_BGMW_H", "0", "0"),
-                                       ("MASP_MSM", "sorted", "sorted"), ("MASP_MSM_STACK", "0", "0"),
-                                       ("MASP_MSM_FROM_LIMBS", "1", "1")):
-        if env.get(name, default) != implemented:
-            raise ValueError(f"{name}={env[name]!r} is not implemented in the port (it runs {implemented!r})")
-    return {"MSM_C": c, "MSM_SPLIT": env.get("MASP_MSM_SPLIT", "1") == "1",
-            "MSM_SPLIT_MIN": int(env.get("MASP_MSM_SPLIT_MIN", "32768")), "MSM_SIGNED": signed,
-            "ABC_DEVICE": switches["MASP_ABC_DEVICE"] == "1"}
+    return {"MSM_C": c, "MSM_IMPL": impl, "MSM_STACK": stack, "MSM_FROM_LIMBS": from_limbs,
+            "MSM_SIGNED": signed, "MSM_SPLIT": split, "MSM_SPLIT_MIN": int(env.get("MASP_MSM_SPLIT_MIN", "32768")),
+            "MSM_FUSED": fused, "MSM_BGMW_H": bgmw_h, "MSM_BGMW_C": bgmw_c, "ABC_DEVICE": abc_device}
 
 
 _FLAGS = msm_flags(os.environ)
 # window width of the full-width MSMs
 MSM_C = _FLAGS["MSM_C"]
+# "sorted": the sorted MSM (ops/msm_sorted.py); "lanes": the lane-private
+# Pippenger (ops/msm.py) on 64 lanes in G1 and 32 in G2
+MSM_IMPL = _FLAGS["MSM_IMPL"]
+MSM_LANES_G1 = 64
+MSM_LANES_G2 = 32
+# the four G1 MSMs as one sorted_msm_batch over a (4, N) stack
+MSM_STACK = _FLAGS["MSM_STACK"]
+# digits extracted on the device from the scalars' limb rows (else the host's)
+MSM_FROM_LIMBS = _FLAGS["MSM_FROM_LIMBS"]
+# balanced signed digits in every full-width MSM
+MSM_SIGNED = _FLAGS["MSM_SIGNED"]
 # whether a query is split into a {0,1}-scalar part and a full-width part,
 # and from how many structural bit wires
 MSM_SPLIT = _FLAGS["MSM_SPLIT"]
 MSM_SPLIT_MIN = _FLAGS["MSM_SPLIT_MIN"]
-# balanced signed digits in every full-width MSM
-MSM_SIGNED = _FLAGS["MSM_SIGNED"]
-# the a/b/c values on the device (else on the host; always so with a mesh)
+# the whole proof enqueued at once: a/b/c from the host, 5 points fetched
+MSM_FUSED = _FLAGS["MSM_FUSED"]
+# the h query through a BGMW table of window width MSM_BGMW_C
+MSM_BGMW_H = _FLAGS["MSM_BGMW_H"]
+MSM_BGMW_C = _FLAGS["MSM_BGMW_C"]
+# the a/b/c values on the device (else on the host; always so with a mesh
+# and in the fused route)
 ABC_DEVICE = _FLAGS["ABC_DEVICE"]
 
 G1_QUERIES = ("h", "l", "a", "b_g1")
@@ -225,41 +271,106 @@ def _identity_row(g2: bool) -> np.ndarray:
 
 
 def _pad_pow2(rows: np.ndarray, g2: bool, floor_log2: int = 0) -> np.ndarray:
-    n_pad = 1 << max(floor_log2, (max(rows.shape[0], 1) - 1).bit_length())
-    out = np.tile(_identity_row(g2), (n_pad, 1))
+    return _pad_rows(rows, 1 << max(floor_log2, (max(rows.shape[0], 1) - 1).bit_length()), g2)
+
+
+def _pad_to(n: int, mult: int) -> int:
+    return n + ((-n) % mult)
+
+
+def _pad_rows(rows: np.ndarray, n: int, g2: bool) -> np.ndarray:
+    """Packed rows padded with identities to n rows."""
+    out = np.tile(_identity_row(g2), (n, 1))
     out[: rows.shape[0]] = rows
     return out
 
 
+def _encode_padded(rows: np.ndarray, n: int, g2: bool, dev):
+    """A query on ``dev`` in the lanes layout: padded with identities to n
+    rows, as the (X, Y, Z) coordinates ``pippenger_msm`` takes (views of
+    one packed tensor)."""
+    return unpack_rows(2 if g2 else 1, torch.as_tensor(_pad_rows(rows, n, g2), device=dev))
+
+
+def _dev_n(points_dev) -> int:
+    """Padded point count of a device query in any layout: packed rows,
+    sharded rows or (X, Y, Z) coordinates."""
+    return points_dev[0].shape[0] if isinstance(points_dev, tuple) else points_dev.shape[0]
+
+
+def _layout(mesh) -> str:
+    """The device layout of the queries: "sorted" (each query padded to its
+    own power of two; always so with a mesh, which ignores the other
+    routes), "stacked" (the four G1 queries in one (4, N) stack at a shared
+    power of two) or "lanes" (coordinates at a shared multiple of the
+    lanes)."""
+    if mesh is not None:
+        return "sorted"
+    return "lanes" if MSM_IMPL == "lanes" else "stacked" if MSM_STACK else "sorted"
+
+
 def prepare_device_params(params: Parameters, device, mesh=None) -> None:
-    """Copy every query to the device once, as packed rows padded with
-    identities to its own power of two (the padding changes no result).
-    With a mesh, each query pads to at least the "msm" axis's size and is
-    placed sharded over that axis (``device`` is not read: the mesh names
-    the devices); the cache is keyed by the mesh's layout and cleared when
-    it changes."""
+    """Copy every query to the device once. In the sorted layout each query
+    is packed rows padded with identities to its own power of two (the
+    padding changes no result); with a mesh each pads to at least the "msm"
+    axis's size and is placed sharded over that axis (``device`` is not
+    read: the mesh names the devices). The stacked layout holds the four G1
+    queries as one (4, N, 72) ``g1_stack`` at their shared power of two N,
+    with no per-query pads, and b_g2 at its own; the lanes layout holds the
+    G1 queries at one shared multiple of MSM_LANES_G1 and b_g2 at a multiple
+    of MSM_LANES_G2, as coordinates. The cache is keyed by the device, the
+    mesh and the layout, and rebuilt when any of them changes, so that a
+    route never reads another route's rows. With MSM_BGMW_H (no mesh) the h
+    query's BGMW table is built once too."""
     key = None if mesh is None else mesh.key
     dev = resolve_device(device) if mesh is None else mesh.device(mesh.local_positions()[0])
-    if params.device.get("dev") == dev and params.device.get("mesh") == key:
-        return
-    params.device.clear()
-    params.device["dev"] = dev
-    params.device["mesh"] = key
-    for q in G1_QUERIES + ("b_g2",):
-        if mesh is None:
-            params.device[q] = torch.as_tensor(_pad_pow2(params.rows(q), q == "b_g2"), device=dev)
+    layout = _layout(mesh)
+    cache = params.device
+    if (cache.get("dev"), cache.get("mesh"), cache.get("layout")) != (dev, key, layout):
+        cache.clear()
+        cache.update(dev=dev, mesh=key, layout=layout)
+        n_max = max(params.rows(q).shape[0] for q in G1_QUERIES)
+        if layout == "stacked":
+            n = cache["n_g1"] = _next_pow2(n_max)
+            cache["g1_stack"] = torch.as_tensor(np.stack([_pad_rows(params.rows(q), n, False) for q in G1_QUERIES]),
+                                                device=dev)
+            cache["b_g2"] = torch.as_tensor(_pad_pow2(params.rows("b_g2"), True), device=dev)
+        elif layout == "lanes":
+            n = cache["n_g1"] = _pad_to(n_max, MSM_LANES_G1)
+            for q in G1_QUERIES:
+                cache[q] = _encode_padded(params.rows(q), n, False, dev)
+            b_g2 = params.rows("b_g2")
+            cache["b_g2"] = _encode_padded(b_g2, _pad_to(b_g2.shape[0], MSM_LANES_G2), True, dev)
         else:
-            rows = _pad_pow2(params.rows(q), q == "b_g2", (mesh.shape["msm"] - 1).bit_length())
-            params.device[q] = PM.shard(mesh, rows, "msm")
+            for q in G1_QUERIES + ("b_g2",):
+                if mesh is None:
+                    cache[q] = torch.as_tensor(_pad_pow2(params.rows(q), q == "b_g2"), device=dev)
+                else:
+                    rows = _pad_pow2(params.rows(q), q == "b_g2", (mesh.shape["msm"] - 1).bit_length())
+                    cache[q] = PM.shard(mesh, rows, "msm")
+    if MSM_BGMW_H and layout == "sorted" and mesh is None:
+        _prepare_bgmw_h(params)
+
+
+def _prepare_bgmw_h(params: Parameters) -> None:
+    """Build the h query's BGMW table at MSM_BGMW_C on the device, once per
+    parameters, device and width (span "bgmw_table")."""
+    cache = params.device
+    if cache.get("h_bgmw_c") == MSM_BGMW_C:
+        return
+    with span("bgmw_table", cache["dev"]):
+        cache["h_bgmw"] = MS.build_bgmw_table(W.G1Ops, cache["h"], MSM_BGMW_C)
+    cache["h_bgmw_c"] = MSM_BGMW_C
 
 
 def prepare_split_queries(params: Parameters, asm: Assembly) -> None:
     """Split l/a/b_g1/b_g2 into a {0,1}-scalar part and a full-width part by
     the structural boolean mask, where at least MSM_SPLIT_MIN exponents of a
     query are bit wires (and not all of them). Witness values are checked
-    against the mask at prove time. Nothing is split for a mesh: its five
-    queries go whole through the sharded MSM."""
-    if params.device.get("mesh") is not None:
+    against the mask at prove time. Nothing is split for a mesh, whose five
+    queries go whole through the sharded MSM, nor in the stacked and lanes
+    layouts, as the reference splits only for the sorted MSM unstacked."""
+    if params.device.get("mesh") is not None or params.device.get("layout") != "sorted":
         return
     st = _structure(params.device, asm)
     if params.device.get("split_key") == (st["key"], MSM_SPLIT, MSM_SPLIT_MIN):
@@ -318,11 +429,28 @@ def _abc_h(dom: Domain, st: dict, v16):
     return h_pipeline(dom, vals.reshape(3, m, FR.L), inputs_mont=True)
 
 
+def _h_digits_device(h_bytes):
+    """(n, 32) device byte digits -> (n, 256 / c) c-bit digits, c = 8 or 4."""
+    if MSM_C == 8:
+        return h_bytes
+    return torch.stack([h_bytes & 0xF, h_bytes >> 4], dim=-1).reshape(h_bytes.shape[0], 64)
+
+
+def _h_scalars(h_mont):
+    """The h scalars of Montgomery coefficients, on their device: canonical
+    limb rows (digits extracted in the MSM) or, with the host-digit layout,
+    c-bit digits from the device's byte digits (``fr_digits_device``)."""
+    if MSM_FROM_LIMBS:
+        return F.from_mont(FR, h_mont)
+    return _h_digits_device(fr_digits_device(h_mont))
+
+
 def _h_scalar_input(h_coeffs, m: int, n_g1: int):
-    """h scalars for the MSM as canonical limb rows, zero-padded to n_g1
-    (bellman drops the last coefficient: degree <= m - 2)."""
-    out = torch.zeros(n_g1, FR.L, dtype=torch.int32, device=h_coeffs.device)
-    out[: m - 1] = F.from_mont(FR, h_coeffs[: m - 1])
+    """h scalars for the MSM, zero-padded to n_g1 (bellman drops the last
+    coefficient: degree <= m - 2)."""
+    h = _h_scalars(h_coeffs[: m - 1])
+    out = torch.zeros((n_g1, h.shape[1]), dtype=h.dtype, device=h.device)
+    out[: m - 1] = h
     return out
 
 
@@ -337,7 +465,7 @@ def _h_scalars_sharded(mesh, h, m: int, n_h: int):
         return PM.shard(mesh, _h_scalar_input(PM.gather(h), m, n_h), "msm")
 
     def local(p, v):
-        out = F.from_mont(FR, v)
+        out = _h_scalars(v)
         if mesh.axis_index(p, "msm") == D - 1:
             out[-1] = 0
         return out
@@ -374,11 +502,39 @@ def _limbs(arr_u64: np.ndarray, n_padded: int) -> np.ndarray:
     return out
 
 
+def _digits_from_u64(arr: np.ndarray, n_padded: int) -> np.ndarray:
+    """(n, 4) uint64 little-endian scalars -> (n_padded, 256 / c) int32
+    c-bit digits on the host, c = MSM_C = 8 (the bytes) or 4 (nibbles)."""
+    n = arr.shape[0]
+    b = np.ascontiguousarray(arr).view(np.uint8).reshape(n, 32)
+    if MSM_C == 8:
+        out = np.zeros((n_padded, 32), dtype=np.int32)
+        out[:n] = b
+        return out
+    if MSM_C != 4:
+        raise ValueError(f"host digits take c = 4 or 8, not {MSM_C}")
+    out = np.zeros((n_padded, 64), dtype=np.int32)
+    out[:n, 0::2] = b & 0xF
+    out[:n, 1::2] = b >> 4
+    return out
+
+
+def _scalar_input(arr: np.ndarray, n_padded: int) -> np.ndarray:
+    """A query's scalars in the active layout: limb rows (digits extracted
+    on the device) or the host's digits."""
+    return _limbs(arr, n_padded) if MSM_FROM_LIMBS else _digits_from_u64(arr, n_padded)
+
+
+def _query_n(cache: dict, q: str) -> int:
+    """Rows of query q on the device (the shared N in the stacked layout)."""
+    return cache["n_g1"] if cache["layout"] == "stacked" and q != "b_g2" else _dev_n(cache[q])
+
+
 def _host_inputs(params: Parameters, asm: Assembly, st: dict, abc_on_device: bool) -> dict:
     """Every per-proof array the device needs, built on the host: the
     witness limb rows (``abc_on_device``) or the a/b/c values, and per query
-    the full-width scalar limb rows and, when split, the bit column. Raises
-    if a witness value violates the boolean split."""
+    the full-width scalars (``_scalar_input``) and, when split, the bit
+    column. Raises if a witness value violates the boolean split."""
     dev = params.device
     full_u64 = asm.assignment
     if abc_on_device:
@@ -393,7 +549,7 @@ def _host_inputs(params: Parameters, asm: Assembly, st: dict, abc_on_device: boo
     }
     for q, arr in scalars.items():
         if q + "_small" not in dev:
-            out[q + "/limbs"] = _limbs(arr, dev[q].shape[0])
+            out[q + "/scalars"] = _scalar_input(arr, _query_n(dev, q))
             continue
         qm = dev[q + "_qmask"]
         small, full = arr[qm], arr[~qm]
@@ -402,37 +558,81 @@ def _host_inputs(params: Parameters, asm: Assembly, st: dict, abc_on_device: boo
         bits = np.zeros(dev[q + "_small"].shape[0], dtype=np.int32)
         bits[: small.shape[0]] = small[:, 0]
         out[q + "/bits"] = bits
-        out[q + "/limbs"] = _limbs(full, dev[q + "_full"].shape[0])
+        out[q + "/scalars"] = _scalar_input(full, dev[q + "_full"].shape[0])
     return out
 
 
-def _msms(params: Parameters, inputs: dict, h_limbs):
-    """Enqueue every MSM; returns {query: [projective rows]} (one row per
-    part) without synchronising."""
-    dev = params.device["dev"]
+def _digits(scalars):
+    """Window digits of a query's scalars: extracted on the device from limb
+    rows, or the host's digits as they are."""
+    return MS.windows_from_limbs(scalars, MSM_C, MSM_SIGNED) if MSM_FROM_LIMBS else scalars
+
+
+def _msms(params: Parameters, inputs: dict, h_scalars, bgmw: bool = True):
+    """Enqueue every MSM in the parameters' layout; returns {query:
+    [projective rows]} (one row per part) without synchronising. Sorted
+    layout: per query the sorted MSM's windows, the h query through its BGMW
+    table with MSM_BGMW_H (and ``bgmw``), and one bucket reduction over
+    the full-width G1 MSMs. Stacked: the four G1 MSMs as one
+    ``sorted_msm_batch``, b_g2 behind it. Lanes: ``pippenger_msm`` a query."""
+    cache = params.device
+    dev = cache["dev"]
     out = {q: [] for q in G1_QUERIES + ("b_g2",)}
-    g1_buckets = []
+    scalars = {"h": h_scalars, **{q: inputs[q + "/scalars"] for q in G1_QUERIES[1:] + ("b_g2",)}}
+    if cache["layout"] == "lanes":
+        for q in G1_QUERIES + ("b_g2",):
+            fops = W.G2Ops if q == "b_g2" else W.G1Ops
+            lanes = MSM_LANES_G2 if q == "b_g2" else MSM_LANES_G1
+            with span(f"msm/{q}", dev):
+                xyz = pippenger_msm(fops, cache[q], scalars[q], MSM_C, lanes=lanes)
+                out[q].append(torch.cat([x.reshape(-1) for x in xyz]))
+        return out
+    if cache["layout"] == "stacked":
+        with span("msm/g1_stack", dev):
+            digits = torch.stack([scalars[q] for q in G1_QUERIES])
+            for q, row in zip(G1_QUERIES, MS.sorted_msm_batch(W.G1Ops, cache["g1_stack"], digits, MSM_C)):
+                out[q].append(row)
+        with span("msm/b_g2", dev):
+            out["b_g2"].append(MS.sorted_msm(W.G2Ops, cache["b_g2"], scalars["b_g2"], MSM_C))
+        return out
+    g1_buckets = {}
     for q in G1_QUERIES + ("b_g2",):
         fops = W.G2Ops if q == "b_g2" else W.G1Ops
         with span(f"msm/{q}", dev):
             if q == "h":
-                pts, limbs = params.device["h"], h_limbs
+                if bgmw and MSM_BGMW_H:
+                    out[q].append(MS.bgmw_msm_from_limbs(fops, cache["h_bgmw"], h_scalars, MSM_BGMW_C))
+                    continue
+                pts = cache["h"]
             elif q + "/bits" in inputs:
-                out[q].append(MS.masked_sum(fops, params.device[q + "_small"], inputs[q + "/bits"]))
-                pts, limbs = params.device[q + "_full"], inputs[q + "/limbs"]
+                out[q].append(MS.masked_sum(fops, cache[q + "_small"], inputs[q + "/bits"]))
+                pts = cache[q + "_full"]
             else:
-                pts, limbs = params.device[q], inputs[q + "/limbs"]
-            digits = MS.windows_from_limbs(limbs, MSM_C, MSM_SIGNED)
-            buckets = MS.window_buckets(fops, pts, digits, MSM_C, signed=MSM_SIGNED)
+                pts = cache[q]
+            buckets = MS.window_buckets(fops, pts, _digits(scalars[q]), MSM_C, signed=MSM_SIGNED)
             if q == "b_g2":
                 out[q].append(MS.bucket_reduce_horner(fops, buckets[None], MSM_C)[0])
             else:
-                g1_buckets.append(buckets)
+                g1_buckets[q] = buckets
     with span("msm/reduce_g1", dev):
-        red = MS.bucket_reduce_horner(W.G1Ops, torch.stack(g1_buckets), MSM_C)
-    for q, row in zip(G1_QUERIES, red):
+        red = MS.bucket_reduce_horner(W.G1Ops, torch.stack(list(g1_buckets.values())), MSM_C)
+    for q, row in zip(g1_buckets, red):
         out[q].append(row)
     return out
+
+
+def _fused_msms(params: Parameters, inputs: dict, h_scalars) -> dict:
+    """The fused route's MSMs (the reference's ``_fused_prove_async``, which
+    runs no BGMW table): every MSM as ``_msms`` enqueues it, and each split
+    query's two halves summed on the device by one point add, so that the
+    fetch copies out exactly 5 points."""
+    parts = _msms(params, inputs, h_scalars, bgmw=False)
+    with span("msm/combine", params.device["dev"]):
+        for q, rows in parts.items():
+            if len(rows) == 2:
+                fops = W.G2Ops if q == "b_g2" else W.G1Ops
+                parts[q] = [MS._add(fops, rows[0][None], rows[1][None])[0]]
+    return parts
 
 
 def _to_device(host: dict, dev) -> tuple[dict, list]:
@@ -486,18 +686,19 @@ def _sum_parts(coords, n_parts: dict) -> dict:
     return res
 
 
-def _mesh_msms(params: Parameters, mesh, inputs: dict, h_limbs) -> dict:
+def _mesh_msms(params: Parameters, mesh, inputs: dict, h_scalars) -> dict:
     """Every MSM of a mesh proof, point-sharded over "msm" with the digits
-    extracted on each shard; each result is read from this process's first
-    position (the butterfly leaves it on every position)."""
+    extracted on each shard (or the host's digits, MSM_FROM_LIMBS off); each
+    result is read from this process's first position (the butterfly leaves
+    it on every position)."""
     dev = params.device["dev"]
     out = {}
     for q in G1_QUERIES + ("b_g2",):
         fops = W.G2Ops if q == "b_g2" else W.G1Ops
         with span(f"msm/{q}", dev):
-            limbs = h_limbs if q == "h" else inputs[q + "/limbs"]
-            point = PM.sharded_sorted_msm(mesh, fops, params.device[q], limbs, MSM_C, axis="msm",
-                                          from_limbs=True, signed=MSM_SIGNED)
+            scalars = h_scalars if q == "h" else inputs[q + "/scalars"]
+            point = PM.sharded_sorted_msm(mesh, fops, params.device[q], scalars, MSM_C, axis="msm",
+                                          from_limbs=MSM_FROM_LIMBS, signed=MSM_SIGNED)
             out[q] = [point.first]
     return out
 
@@ -506,7 +707,10 @@ def _enqueue(asm: Assembly, params: Parameters, r: int, s: int, device, mesh=Non
     """Enqueue one proof on the device, from its inputs' copies to the
     copies of its results, without waiting for the device; ``_drain``
     finishes it. With a mesh: the a/b/c values from the host, the sharded h
-    pipeline and the sharded MSMs."""
+    pipeline and the sharded MSMs. With MSM_FUSED (no mesh): the a/b/c
+    values from the host, the h pipeline and its scalars, every MSM and the
+    sum of the split halves, and the fetch of 5 points, enqueued as one
+    stream of work."""
     if asm.assignment is None:
         raise ValueError("the assembly carries no witness")
     with span("setup"):
@@ -520,21 +724,23 @@ def _enqueue(asm: Assembly, params: Parameters, r: int, s: int, device, mesh=Non
         dom = params.device.get("domain")
         if dom is None or dom.m != m:
             dom = params.device["domain"] = Domain(m, device=dev)
+        fused = MSM_FUSED and params.device["layout"] == "sorted" and mesh is None
     if mesh is not None:
         with span("inputs", dev):
             inputs, staged = _host_inputs(params, asm, st, abc_on_device=False), []
         with span("h_pipeline", dev):
             abc = torch.from_numpy(inputs["abc"])
             h_coeffs = PM.sharded_h_pipeline(mesh, dom, abc[0], abc[1], abc[2], axis="msm")
-            h_limbs = _h_scalars_sharded(mesh, h_coeffs, m, params.device["h"].shape[0])
-        parts = _mesh_msms(params, mesh, inputs, h_limbs)
+            h_scalars = _h_scalars_sharded(mesh, h_coeffs, m, params.device["h"].shape[0])
+        parts = _mesh_msms(params, mesh, inputs, h_scalars)
     else:
+        abc_on_device = ABC_DEVICE and not fused
         with span("inputs", dev):
-            inputs, staged = _to_device(_host_inputs(params, asm, st, ABC_DEVICE), dev)
+            inputs, staged = _to_device(_host_inputs(params, asm, st, abc_on_device), dev)
         with span("h_pipeline", dev):
-            h_coeffs = _abc_h(dom, st, inputs["v16"]) if ABC_DEVICE else h_pipeline(dom, inputs["abc"])
-            h_limbs = _h_scalar_input(h_coeffs, m, params.device["h"].shape[0])
-        parts = _msms(params, inputs, h_limbs)
+            h_coeffs = _abc_h(dom, st, inputs["v16"]) if abc_on_device else h_pipeline(dom, inputs["abc"])
+            h_scalars = _h_scalar_input(h_coeffs, m, _query_n(params.device, "h"))
+        parts = (_fused_msms if fused else _msms)(params, inputs, h_scalars)
     with span("fetch", dev):
         coords, event = _fetch_async(parts)
     return {"coords": coords, "event": event, "staged": staged, "r": r, "s": s,
@@ -575,7 +781,11 @@ def create_proofs_from_assemblies(cs_list, params: Parameters, rs_list, device="
     proofs behind it are enqueued, and the rest at the end. ``cs_list`` may
     be a lazy iterable, so that witness i + 1 is synthesised while proof i
     runs. Every witness must have the parameters' domain (else ValueError).
-    ``mesh`` as in create_proof_from_assembly."""
+    ``mesh`` as in create_proof_from_assembly. Each proof takes the single
+    prover's route (fused, BGMW for h, lanes, host digits); the stacked
+    layout raises ValueError, as the reference asserts."""
+    if _layout(mesh) == "stacked":
+        raise ValueError("batch proving uses the per-query device layout, not the stacked one (MSM_STACK)")
     rs_list = list(rs_list)
     if not rs_list:
         return []
@@ -617,6 +827,7 @@ def create_random_proof(circuit, params: Parameters, rng, device="cuda") -> Proo
 __all__ = [
     "create_proof", "create_random_proof", "create_proof_from_assembly",
     "create_proofs_from_assemblies", "synthesize_witness", "prepare_device_params",
-    "prepare_split_queries", "boolean_var_mask", "h_pipeline", "msm_flags", "MSM_C", "MSM_SPLIT",
-    "MSM_SPLIT_MIN", "MSM_SIGNED", "ABC_DEVICE",
+    "prepare_split_queries", "boolean_var_mask", "h_pipeline", "msm_flags", "MSM_C", "MSM_IMPL",
+    "MSM_LANES_G1", "MSM_LANES_G2", "MSM_STACK", "MSM_FROM_LIMBS", "MSM_SPLIT", "MSM_SPLIT_MIN",
+    "MSM_SIGNED", "MSM_FUSED", "MSM_BGMW_H", "MSM_BGMW_C", "ABC_DEVICE",
 ]

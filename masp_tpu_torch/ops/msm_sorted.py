@@ -31,6 +31,11 @@ points are packed rows (N, rowlen) int32: 72 limbs on G1, 144 on G2
 
 The two ladders give the same points but not the same projective limbs: an
 affine node is the canonical affine sum, a projective node carries its own Z.
+
+Off the prover's default route: ``sorted_msm_batch`` (Q independent MSMs
+folded into the row axis, so that every ladder level and the reduction is
+one launch over all Q) and the fixed-base BGMW tables for a parameter query
+(``build_bgmw_table``, ``bgmw_msm_from_limbs``).
 """
 
 from __future__ import annotations
@@ -187,27 +192,60 @@ def _bucket_sums(fops, gather, bounds, levels: int):
     return _add(fops, acc, _g_neg(fops, qprev))
 
 
+def _fold_queries(points_packed, digits):
+    """Q independent MSMs as one: (Q, N, rowlen) points and (Q, N, W) digits
+    -> (Q N, rowlen) rows, (N, Q W) digits (window q W + w of point i is
+    digits[q, i, w]) and the (Q W,) row offset q N of each window's points.
+    (N, rowlen) points and (N, W) digits pass through with offset None."""
+    if points_packed.dim() == 2:
+        return points_packed, digits, None
+    Q, N, rl = points_packed.shape
+    n_windows = digits.shape[2]
+    rows = points_packed.reshape(Q * N, rl)
+    folded = digits.permute(1, 0, 2).reshape(N, Q * n_windows)
+    base = torch.arange(Q, device=digits.device).repeat_interleave(n_windows) * N
+    return rows, folded, base
+
+
+def _sorted_rows(perm, base):
+    """Row indices of the sorted points, (W N,): each window's permutation,
+    offset into its own query's rows when Q MSMs are folded together."""
+    return (perm if base is None else perm + base[:, None]).reshape(-1)
+
+
+def _unfold_queries(buckets, points_packed):
+    """(Q W, B, rowlen) bucket sums back to (Q, W, B, rowlen) for Q folded
+    MSMs; (W, B, rowlen) as it is for one."""
+    if points_packed.dim() == 2:
+        return buckets
+    return buckets.reshape((points_packed.shape[0], -1) + buckets.shape[1:])
+
+
 def window_buckets(fops, points_packed, digits, c: int, signed: bool = False):
     """Per-window bucket sums (W, B, rowlen), B = n_buckets(c, signed): the
     data-parallel bulk of the MSM. points_packed (N, rowlen) with N a power
     of two (pad with identity rows and zero digits); digits (N, W), balanced
     when ``signed`` (the points of negative digits enter the ladder
-    negated). With the affine ladder on this is ``window_buckets_flat``; else
-    the projective scan ladder, nodes[l][j] = the sum of sorted points
-    [j 2^l, (j+1) 2^l)."""
+    negated). Q independent MSMs, (Q, N, rowlen) points and (Q, N, W)
+    digits, give (Q, W, B, rowlen): their Q W windows run as the windows of
+    one MSM do, each over its own query's rows. With the affine ladder on
+    this is ``window_buckets_flat``; else the projective scan ladder,
+    nodes[l][j] = the sum of sorted points [j 2^l, (j+1) 2^l)."""
     if _affine_on(fops):
         return window_buckets_flat(fops, points_packed, digits, c, signed=signed)
-    levels = _levels(points_packed.shape[0])
-    perm, bounds, signs = _sorted_windows(digits, c, signed)
+    rows, folded, base = _fold_queries(points_packed, digits)
+    levels = _levels(folded.shape[0])
+    perm, bounds, signs = _sorted_windows(folded, c, signed)
     # up-sweep over all windows at once; pairs never straddle windows
-    cur = points_packed[perm.reshape(-1)]  # (W*N, rowlen)
+    cur = rows[_sorted_rows(perm, base)]  # (W*N, rowlen)
     if signed:
         cur = torch.where(signs.reshape(-1, 1), _g_neg(fops, cur), cur)
     nodes = [cur]
     for lv in range(levels):
         cur = _halve(fops, cur, leaf01=lv == 0)
         nodes.append(cur)
-    return _bucket_sums(fops, lambda lv, idx: _take(nodes[lv], idx), bounds, levels)
+    buckets = _bucket_sums(fops, lambda lv, idx: _take(nodes[lv], idx), bounds, levels)
+    return _unfold_queries(buckets, points_packed)
 
 
 def _window_sums_wide(fops, buckets):
@@ -276,6 +314,20 @@ def sorted_msm_from_limbs(fops, points_packed, limbs16, c: int, signed: bool = T
     canonical 16-bit limb rows of the scalars; balanced signed digits by
     default, as the reference's."""
     return sorted_msm(fops, points_packed, windows_from_limbs(limbs16, c, signed), c, signed=signed)
+
+
+def sorted_msm_batch(fops, points_packed, digits, c: int, signed: bool = False):
+    """Q independent MSMs: points_packed (Q, N, rowlen), digits (Q, N, W) ->
+    (Q, rowlen) projective rows. The reference vmaps sorted_msm; here the Q
+    queries fold into the row axis (``window_buckets`` on (Q, N, ...)), so
+    each ladder level is one launch over all Q W windows and the reduction
+    one launch a step over all Q, and each query's arithmetic is what it
+    would be alone."""
+    if points_packed.dim() != 3 or digits.dim() != 3 or digits.shape[:2] != points_packed.shape[:2]:
+        raise ValueError(f"sorted_msm_batch takes (Q, N, rowlen) points and (Q, N, W) digits, got "
+                         f"{tuple(points_packed.shape)} and {tuple(digits.shape)}")
+    buckets = window_buckets(fops, points_packed, digits, c, signed=signed)
+    return bucket_reduce_horner(fops, buckets, c)
 
 
 def masked_sum(fops, points_packed, bits):
@@ -379,10 +431,12 @@ def window_buckets_flat(fops, points_packed, digits, c: int, signed: bool = Fals
     once, the levels above projective; the same prefix queries and bucket
     differences as the scan ladder, lifting the affine nodes' Z from their
     flags. With ``signed`` the gathered rows' y is negated where the digit
-    is negative (x and the identity flag stay). The affine levels need a
-    power-of-two lane count W * N (ValueError otherwise: c = 10 or 11 gives
-    26 or 24 windows)."""
-    N, rl = points_packed.shape
+    is negative (x and the identity flag stay). Q folded MSMs as in
+    ``window_buckets``. The affine levels need a power-of-two lane count
+    W * N (ValueError otherwise: c = 10 or 11 gives 26 or 24 windows)."""
+    rows, digits, base = _fold_queries(points_packed, digits)
+    n_rows, rl = rows.shape
+    N = digits.shape[0]
     n_windows = digits.shape[1]
     levels = _levels(N)
     K = max(0, min(AFFINE_LEVELS, levels))
@@ -393,9 +447,9 @@ def window_buckets_flat(fops, points_packed, digits, c: int, signed: bool = Fals
     k = rl // 3
     perm, bounds, signs = _sorted_windows(digits, c, signed)
     # affine source rows [x | y | f], f = (Z == 0): the flag rides the row gather
-    inf = fops.is_zero(points_packed[:, 2 * k :].reshape((N,) + tuple(fops.coord_shape)))
-    src = torch.cat([points_packed[:, : 2 * k], inf.to(torch.int32)[:, None]], dim=1)
-    cur = src[perm.reshape(-1)]  # (W*N, 2k+1)
+    inf = fops.is_zero(rows[:, 2 * k :].reshape((n_rows,) + tuple(fops.coord_shape)))
+    src = torch.cat([rows[:, : 2 * k], inf.to(torch.int32)[:, None]], dim=1)
+    cur = src[_sorted_rows(perm, base)]  # (W*N, 2k+1)
     if signed:
         y = cur[:, k : 2 * k]
         ny = F.neg(FQ, y.reshape(-1, FQ.L)).reshape(y.shape)
@@ -413,11 +467,87 @@ def window_buckets_flat(fops, points_packed, digits, c: int, signed: bool = Fals
     def gather(lv, idx):
         return _lift(fops, _take(aff[lv], idx)) if lv <= K else _take(proj[lv], idx)
 
-    return _bucket_sums(fops, gather, bounds, levels)
+    return _unfold_queries(_bucket_sums(fops, gather, bounds, levels), points_packed)
+
+
+# --- fixed-base (BGMW) tables ---------------------------------------------------
+#
+# Groth16's proving MSMs run over fixed parameter points, so the multiples
+# [2^(c w)] P_i of every window w can be built once per parameters: the
+# W-window Pippenger then becomes single-window MSMs over the (point,
+# window) pairs, with no Horner chain, at a c above 8 (22 windows at
+# c = 12, grouped [16, 4, 2]). Costs (W - 1) times the query's rows in
+# device memory. G1 only, as the reference.
+
+
+def _pow2_groups(w: int) -> list[int]:
+    """A window count as descending powers of two (22 -> [16, 4, 2]): each
+    group's merged MSM needs a power-of-two entry count for its ladder."""
+    out = []
+    bit = 1 << (w.bit_length() - 1)
+    while w:
+        if w >= bit:
+            out.append(bit)
+            w -= bit
+        bit >>= 1
+    return out
+
+
+def build_bgmw_table(fops, points_packed, c: int):
+    """The BGMW table of a G1 parameter query, (W N, rowlen) rows slab-major:
+    slab w holds [2^(c w)] P_i, W = n_windows_for(c). Slab 0 is the query as
+    it is (encoded affine points or identity pads); each further slab is c
+    doublings of the one before, through the complete add ``g_add(p, p)``
+    (one point-add launch each, both operands the same rows), and then all
+    of them are made affine at once: one ``F.batch_mont_inv`` over every Z
+    (the Fq product tree and one inversion at its root), x = X / Z, y = Y / Z,
+    Z = mont-1, and identities (0, mont-1, 0). So every Z is 0 or mont-1, as
+    the ladder's leaf add needs and the query's own rows have."""
+    if getattr(fops, "GROUP", None) != 1:
+        raise ValueError("BGMW tables are built for G1 queries only")
+    n_windows = n_windows_for(c)
+    N, rl = points_packed.shape
+    k = rl // 3
+    cur, slabs = points_packed, []
+    for _ in range(n_windows - 1):
+        for _ in range(c):
+            cur = _add(fops, cur, cur)
+        slabs.append(cur)
+    proj = torch.cat(slabs)
+    X, Y, Z = proj[:, :k], proj[:, k : 2 * k], proj[:, 2 * k :]
+    zinv = F.batch_mont_inv(FQ, Z)
+    ident = identity_rows(fops, (proj.shape[0],), proj.device)
+    one = ident[:, k : 2 * k]  # the identity's Y is mont-1
+    aff = torch.cat([F.mont_mul(FQ, X, zinv), F.mont_mul(FQ, Y, zinv), one], dim=1)
+    aff = torch.where(fops.is_zero(Z)[:, None], ident, aff)
+    return torch.cat([points_packed, aff])
+
+
+def bgmw_msm_from_limbs(fops, table_rows, limbs16, c: int):
+    """sum_i [s_i] P_i against a ``build_bgmw_table`` table, from (N, 16)
+    canonical limb rows of the scalars: unsigned c-bit digits, then for each
+    power-of-two group of g windows one single-window MSM over its g N
+    (point, window) pairs at digits (g N, 1) (the slabs carry the window
+    weights, so there are no Horner doublings; the reduction is the wide one
+    from 1,024 buckets, as ``bucket_reduce_horner`` chooses), and the group
+    results summed by one point add each. Returns one projective row."""
+    N = limbs16.shape[0]
+    digits = windows_from_limbs(limbs16, c)  # (N, W)
+    n_windows = digits.shape[1]
+    if table_rows.shape[0] != n_windows * N:
+        raise ValueError(f"a table of {table_rows.shape[0]} rows for {n_windows} windows of {N} points")
+    total, off = None, 0
+    for g in _pow2_groups(n_windows):
+        d = digits[:, off : off + g].T.reshape(g * N, 1)
+        buckets = window_buckets(fops, table_rows[off * N : (off + g) * N], d, c)
+        pt = bucket_reduce_horner(fops, buckets[None], c)[0]
+        total = pt if total is None else _add(fops, total[None], pt[None])[0]
+        off += g
+    return total
 
 
 __all__ = [
     "n_windows_for", "n_buckets", "windows_from_limbs", "window_buckets", "window_buckets_flat",
-    "bucket_reduce_horner", "sorted_msm", "sorted_msm_from_limbs",
-    "masked_sum", "affine_ladder_takes", "ladder_flags", "AFFINE_LADDER", "AFFINE_LEVELS",
+    "bucket_reduce_horner", "sorted_msm", "sorted_msm_from_limbs", "sorted_msm_batch",
+    "build_bgmw_table", "bgmw_msm_from_limbs", "masked_sum", "affine_ladder_takes", "ladder_flags", "AFFINE_LADDER", "AFFINE_LEVELS",
 ]

@@ -184,7 +184,9 @@ def test_load_parameters_checks_size_and_hash(tmp_path):
         PIO.load_parameters(*paths)
     with pytest.raises(PIO.ParameterError, match="does not match expected"):
         PIO.load_parameters(*paths, check_sizes=False)
-    assert not hasattr(PIO, "download_masp_parameters")
+    # the download path is ported too (tests/test_torch_utils.py drives it
+    # through a local opener)
+    assert "download_masp_parameters" in PIO.__all__ and callable(PIO.fetch_params)
 
 
 def test_verify_proofs_batch_matches_jax():

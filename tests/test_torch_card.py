@@ -15,8 +15,10 @@ unaligned rows. One case proves a tiny circuit on the card and holds the
 proof against the port's CPU proof of the same witness, and one proves it
 on a virtual mesh of two positions of the card (create_proof_from_assembly
 (mesh=)); one holds the signed digits and the signed sorted MSM on the card
-against their CPU runs; one holds the
-port's AEAD (host/crypto.py) against RFC 8439 and the note scan's device
+against their CPU runs; one proves a tiny circuit through each of the
+prover's five off-by-default routes on the card against the CPU proof, and
+holds the BGMW table and the batched sorted MSM against their CPU runs; one
+holds the port's AEAD (host/crypto.py) against RFC 8439 and the note scan's device
 decompression (SaplingDomain.batch_epk at 64 encodings) against the host.
 
 This file imports neither jax nor masp_tpu, so it runs where only the port
@@ -447,6 +449,108 @@ def check_signed_digits(dev):
             assert torch.equal(on_card.cpu(), on_cpu), (group, c)
 
 
+class _Bits:
+    """Six bits, their xor and and, packed into v; out = v^2 + (b0 xor b1):
+    eight bit wires, so that the split runs when forced on."""
+
+    def __init__(self, bits=None):
+        self.bits = bits
+
+    def synthesize(self, cs):
+        from masp_tpu_torch.host.r1cs.gadgets.boolean import AllocatedBit
+
+        vals = self.bits or [None] * 6
+        bs = [AllocatedBit.alloc(cs, b) for b in vals]
+        x = AllocatedBit.xor(cs, bs[0], bs[1])
+        AllocatedBit.and_(cs, bs[2], bs[3])
+        known = self.bits is not None
+        v_val = sum(b << i for i, b in enumerate(vals)) if known else None
+        v = cs.alloc("v", v_val)
+        pack = lc_var(bs[0].var)
+        for i, b in enumerate(bs[1:], 1):
+            pack = pack + lc_var(b.var, 1 << i)
+        cs.enforce("pack", pack, lc_var(ONE), lc_var(v))
+        sq = cs.alloc("sq", v_val * v_val if known else None)
+        cs.enforce("sq", lc_var(v), lc_var(v), lc_var(sq))
+        out = cs.alloc_input("out", (v_val * v_val + (vals[0] ^ vals[1])) % FR.modulus if known else None)
+        cs.enforce("out", lc_var(sq) + x.var, lc_var(ONE), lc_var(out))
+
+
+ROUTES = {"host_digits": {"MASP_MSM_FROM_LIMBS": "0"}, "stacked": {"MASP_MSM_STACK": "1"},
+          "fused": {"MASP_MSM_FUSED": "1"}, "bgmw_h": {"MASP_MSM_BGMW_H": "1"}, "lanes": {"MASP_MSM": "lanes"}}
+
+
+def _with_flags(env: dict, fn):
+    """fn() with the prover's MSM constants set as msm_flags derives them
+    from ``env``; the constants are restored after."""
+    saved = {k: getattr(TP, k) for k in TP.msm_flags({})}
+    try:
+        for k, v in TP.msm_flags(env).items():
+            setattr(TP, k, v)
+        return fn()
+    finally:
+        for k, v in saved.items():
+            setattr(TP, k, v)
+
+
+def check_routes(dev):
+    """A tiny proof (six bits, the split forced on, c = 4) through each of
+    the prover's five off-by-default routes on the card (BGMW at c = 5,
+    lanes at 64 / 32) equals the port's default CPU proof of the same
+    witness and (r, s) and verifies, and so does a proof on a 2-position
+    virtual mesh of the card with host digits, and with the routes a mesh
+    ignores (stacked, fused, BGMW); the BGMW table (c = 5, 16 points with
+    an identity) and sorted_msm_batch (Q = 4, N = 16, c = 4) on the card
+    equal their CPU runs limb for limb."""
+    from masp_tpu_torch.ops import msm_sorted as MS
+
+    kcs = KeypairAssembly()
+    _Bits().synthesize(kcs)
+    S.add_input_constraints(kcs)
+    params = TG.generate_parameters(S.assembly_from_cs(kcs), 11, 13, 17, 19, 23, device="cpu")
+    bits = [1, 0, 1, 1, 0, 1]
+    asm, _ = S.synthesize_witness(_Bits(bits), use_tape=False)
+    base = {"MASP_MSM_C": "4", "MASP_MSM_SPLIT_MIN": "2", "MASP_MSM_BGMW_C": "5"}
+    on_cpu = _with_flags(base, lambda: TG.create_proof_from_assembly(asm, params, 3, 4, device="cpu")).write()
+    pvk = prepare_verifying_key(params.vk)
+    v = sum(b << i for i, b in enumerate(bits))
+    for route, env in ROUTES.items():
+        before = LAUNCHES["g1_add"]
+        proof = _with_flags({**base, **env}, lambda: TG.create_proof_from_assembly(asm, params, 3, 4, device=dev))
+        assert LAUNCHES["g1_add"] > before, route
+        assert params.device["dev"].type == "cuda", route
+        assert proof.write() == on_cpu, route
+        assert verify_proof(pvk, proof, [v * v + (bits[0] ^ bits[1])]), route
+    # a mesh takes host digits where they are on, and ignores the stacked,
+    # fused and BGMW routes
+    from masp_tpu_torch.parallel import mesh as PM
+
+    mesh = PM.make_mesh(2, devices=[dev] * 2)
+    for env in ({"MASP_MSM_FROM_LIMBS": "0"}, {"MASP_MSM_STACK": "1"},
+                {"MASP_MSM_FUSED": "1", "MASP_MSM_BGMW_H": "1"}):
+        proof = _with_flags({**base, **env}, lambda: TG.create_proof_from_assembly(asm, params, 3, 4, mesh=mesh))
+        assert proof.write() == on_cpu, env
+        assert params.device["layout"] == "sorted" and "h_bgmw" not in params.device, env
+
+    rng = random.Random(5)
+    pts = [G1.generator() * rng.randrange(1, 1 << 64) for _ in range(15)] + [G1.identity()]
+    rows = _proj_rows(1, pts, "cpu")
+    table = MS.build_bgmw_table(W.G1Ops, rows, 5)
+    assert torch.equal(_launched("g1_add", lambda: MS.build_bgmw_table(W.G1Ops, rows.to(dev), 5),
+                                 times=5 * (MS.n_windows_for(5) - 1)).cpu(), table)
+    limbs = torch.as_tensor(F.encode(FR, [rng.randrange(SCALAR_MODULUS) for _ in range(16)], mont=False)
+                            .astype(np.int32))
+    on_card = MS.bgmw_msm_from_limbs(W.G1Ops, table.to(dev), limbs.to(dev), 5)
+    assert torch.equal(on_card.cpu(), MS.bgmw_msm_from_limbs(W.G1Ops, table, limbs, 5))
+    qrows = torch.stack([_proj_rows(1, [G1.generator() * rng.randrange(1, 1 << 64) for _ in range(16)], "cpu")
+                         for _ in range(4)])
+    digits = torch.stack([MS.windows_from_limbs(torch.as_tensor(
+        F.encode(FR, [rng.randrange(SCALAR_MODULUS) for _ in range(16)], mont=False).astype(np.int32)), 4)
+        for _ in range(4)])
+    on_card = MS.sorted_msm_batch(W.G1Ops, qrows.to(dev), digits.to(dev), 4)
+    assert torch.equal(on_card.cpu(), MS.sorted_msm_batch(W.G1Ops, qrows, digits, 4))
+
+
 def check_note_scan(dev):
     """The port's AEAD (host/crypto.py, since the card machine need not have
     `cryptography`) against RFC 8439 §2.8.2, and SaplingDomain.batch_epk's
@@ -481,7 +585,8 @@ CASES = (
     + [(check_jubjub_add, (w,)) for w in sorted(ADD_WIDTHS + [8])]
     + [(check_fr_sqrt, (w,)) for w in WIDTHS]
     + [(check_pedersen_fold, (w,)) for w in WIDTHS + [64, 4096]]
-    + [(check_card_proof, ()), (check_note_scan, ()), (check_mesh_proof, ()), (check_signed_digits, ())]
+    + [(check_card_proof, ()), (check_note_scan, ()), (check_mesh_proof, ()), (check_signed_digits, ()),
+       (check_routes, ())]
 )
 
 

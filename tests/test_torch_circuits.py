@@ -60,10 +60,14 @@ COPIES = {
     **{f"host/transaction/{m}.py": f"masp_tpu/transaction/{m}.py" for m in (
         "components/transparent", "components/transparent_builder", "txid", "components/sapling", "transaction",
         "sighash", "fees", "components/sapling_builder", "builder", "borsh_io")},
+    **{f"host/{m}.py": f"masp_tpu/utils/{m}.py" for m in ("hashreader", "downloadreader")},
+    **{f"host/primitives/{m}.py": f"masp_tpu/primitives/{m}.py" for m in ("blake2", "zip339")},
+    "groth16/embedded_vks.py": "masp_tpu/groth16/embedded_vks.py",
 }
 # port file -> (its source, the functions copied from it)
 FUNCTION_COPIES = {
     "tools/fixtures.py": ("bench.py", ("_spend_fixture", "_convert_fixture", "_output_fixture")),
+    "utils/memuse.py": ("masp_tpu/utils/memuse.py", ("register", "dynamic_usage", "dynamic_usage_bounds")),
 }
 # the only copies with marked departures from their source: the native
 # library's build, and the port's Parameters where the proving keys are
@@ -84,6 +88,8 @@ IMPORTS = [
     ("masp_tpu_torch.groth16.synthesis import add_input_constraints as _add_input_constraints",
      "masp_tpu.groth16.generator import _add_input_constraints"),
     ("masp_tpu_torch.host.encoding", "masp_tpu.utils.encoding"),
+    ("masp_tpu_torch.host.downloadreader", "masp_tpu.utils.downloadreader"),
+    ("masp_tpu_torch.host.hashreader", "masp_tpu.utils.hashreader"),
     ("masp_tpu_torch.host import borsh", "masp_tpu.utils import borsh"),
     ("masp_tpu_torch.host.borsh", "masp_tpu.utils.borsh"),
     ("masp_tpu_torch.host.verifier", "masp_tpu.groth16.verifier"),

@@ -190,27 +190,50 @@ def test_split_proof_matches_host_reference(small_window, ladder, monkeypatch):
 
 
 def test_msm_flags_are_read_or_raise(monkeypatch):
-    """The JAX package's MSM variables that the port implements are read at
-    import with the port's defaults, and MASP_MSM_SPLIT=0 keeps every query
-    whole where the split would run; a value the port does not implement
-    raises ValueError."""
+    """The JAX package's MSM variables are read at import with the port's
+    defaults and derived as the reference derives them (FROM_LIMBS only for
+    the sorted MSM unstacked, SIGNED and FUSED only with FROM_LIMBS, SPLIT
+    only for the sorted MSM unstacked, BGMW_H only for the sorted MSM with
+    FROM_LIMBS), and MASP_MSM_SPLIT=0 keeps every query whole where the
+    split would run; a value the port does not take raises ValueError."""
     import subprocess
     import sys
 
-    assert TP.msm_flags({}) == {"MSM_C": 8, "MSM_SPLIT": True, "MSM_SPLIT_MIN": 32768, "MSM_SIGNED": False,
-                                "ABC_DEVICE": True}
+    default = {"MSM_C": 8, "MSM_IMPL": "sorted", "MSM_STACK": False, "MSM_FROM_LIMBS": True,
+               "MSM_SIGNED": False, "MSM_SPLIT": True, "MSM_SPLIT_MIN": 32768, "MSM_FUSED": False,
+               "MSM_BGMW_H": False, "MSM_BGMW_C": 12, "ABC_DEVICE": True}
+    assert TP.msm_flags({}) == default
     assert TP.msm_flags({"MASP_MSM_C": "4", "MASP_MSM_SPLIT": "0", "MASP_MSM_SPLIT_MIN": "2",
-                         "MASP_ABC_DEVICE": "1"}) == {"MSM_C": 4, "MSM_SPLIT": False, "MSM_SPLIT_MIN": 2,
-                                                      "MSM_SIGNED": False, "ABC_DEVICE": True}
+                         "MASP_ABC_DEVICE": "1"}) == {**default, "MSM_C": 4, "MSM_SPLIT": False, "MSM_SPLIT_MIN": 2}
     assert TP.msm_flags({"MASP_MSM_SIGNED": "1", "MASP_ABC_DEVICE": "0"}) == {
-        "MSM_C": 8, "MSM_SPLIT": True, "MSM_SPLIT_MIN": 32768, "MSM_SIGNED": True, "ABC_DEVICE": False}
+        **default, "MSM_SIGNED": True, "ABC_DEVICE": False}
+    # each route, and what the reference's derivations make of it
+    routes = [
+        ({"MASP_MSM_FROM_LIMBS": "0", "MASP_MSM_SIGNED": "1", "MASP_MSM_FUSED": "1", "MASP_MSM_BGMW_H": "1"},
+         {"MSM_FROM_LIMBS": False}),
+        ({"MASP_MSM_STACK": "1", "MASP_MSM_SIGNED": "1"}, {"MSM_STACK": True, "MSM_FROM_LIMBS": False,
+                                                           "MSM_SPLIT": False}),
+        ({"MASP_MSM_FUSED": "1", "MASP_MSM_SIGNED": "1"}, {"MSM_FUSED": True, "MSM_SIGNED": True}),
+        ({"MASP_MSM_BGMW_H": "1", "MASP_MSM_BGMW_C": "5"}, {"MSM_BGMW_H": True, "MSM_BGMW_C": 5}),
+        ({"MASP_MSM": "lanes", "MASP_MSM_BGMW_H": "1", "MASP_MSM_FUSED": "1", "MASP_MSM_C": "4"},
+         {"MSM_IMPL": "lanes", "MSM_FROM_LIMBS": False, "MSM_SPLIT": False, "MSM_C": 4}),
+        ({"MASP_MSM_BGMW_C": "16"}, {"MSM_BGMW_C": 16}),
+    ]
+    for env, changed in routes:
+        assert TP.msm_flags(env) == {**default, **changed}, env
+    assert (TP.MSM_LANES_G1, TP.MSM_LANES_G2) == (P.MSM_LANES_G1, P.MSM_LANES_G2) == (64, 32)
     assert MS.ladder_flags({}) == (False, 4)
     assert MS.ladder_flags({"MASP_MSM_AFFINE": "1", "MASP_MSM_AFFINE_LEVELS": "2",
                             "MASP_MSM_WIDE_REDUCE": "1"}) == (True, 2)
-    for env in ({"MASP_MSM_SIGNED": "2"}, {"MASP_MSM_FUSED": "1"}, {"MASP_MSM_BGMW_H": "1"},
-                {"MASP_ABC_DEVICE": "yes"}, {"MASP_MSM": "lanes"}, {"MASP_MSM_C": "17"},
-                {"MASP_MSM_STACK": "1"}, {"MASP_MSM_FROM_LIMBS": "0"}):
-        with pytest.raises(ValueError, match=next(iter(env)) + "="):
+    for env, match in (({"MASP_MSM_SIGNED": "2"}, None), ({"MASP_MSM_FUSED": "yes"}, None),
+                       ({"MASP_MSM_BGMW_H": "2"}, None), ({"MASP_ABC_DEVICE": "yes"}, None),
+                       ({"MASP_MSM": "pippenger"}, None), ({"MASP_MSM_C": "17"}, None),
+                       ({"MASP_MSM_STACK": "on"}, None), ({"MASP_MSM_FROM_LIMBS": "no"}, None),
+                       ({"MASP_MSM_BGMW_C": "17"}, None), ({"MASP_MSM_BGMW_C": "1"}, None),
+                       ({"MASP_MSM_FROM_LIMBS": "0", "MASP_MSM_C": "5"}, "MASP_MSM_C="),
+                       ({"MASP_MSM_STACK": "1", "MASP_MSM_C": "6"}, "MASP_MSM_C="),
+                       ({"MASP_MSM": "lanes", "MASP_MSM_C": "12"}, "MASP_MSM_C=")):
+        with pytest.raises(ValueError, match=match or next(iter(env)) + "="):
             TP.msm_flags(env)
     # the wide reduction runs on either ladder: the flag leaves the scan ladder
     assert MS.ladder_flags({"MASP_MSM_WIDE_REDUCE": "1"}) == (False, 4)
@@ -221,12 +244,14 @@ def test_msm_flags_are_read_or_raise(monkeypatch):
         TP.msm_flags({"MASP_MSM_C": "10"})
     code = ("from masp_tpu_torch.groth16 import prover as P; from masp_tpu_torch.ops import msm_sorted as M; "
             "print(P.MSM_C, P.MSM_SPLIT, P.MSM_SPLIT_MIN, M.AFFINE_LADDER, M.AFFINE_LEVELS, P.MSM_SIGNED, "
-            "P.ABC_DEVICE)")
+            "P.ABC_DEVICE, P.MSM_FUSED, P.MSM_BGMW_H, P.MSM_BGMW_C, P.MSM_IMPL, P.MSM_STACK, P.MSM_FROM_LIMBS)")
     env = {**os.environ, "MASP_MSM_C": "4", "MASP_MSM_SPLIT": "0", "MASP_MSM_SPLIT_MIN": "9",
-           "MASP_MSM_AFFINE": "1", "MASP_MSM_AFFINE_LEVELS": "3", "MASP_MSM_SIGNED": "1", "MASP_ABC_DEVICE": "0"}
+           "MASP_MSM_AFFINE": "1", "MASP_MSM_AFFINE_LEVELS": "3", "MASP_MSM_SIGNED": "1", "MASP_ABC_DEVICE": "0",
+           "MASP_MSM_FUSED": "1", "MASP_MSM_BGMW_H": "1", "MASP_MSM_BGMW_C": "8"}
     out = subprocess.run([sys.executable, "-c", code], env=env, cwd=REPO, capture_output=True, text=True,
                          timeout=300, check=True).stdout
-    assert out.split() == ["4", "False", "9", "True", "3", "True", "False"]
+    assert out.split() == ["4", "False", "9", "True", "3", "True", "False", "True", "True", "8", "sorted", "False",
+                           "True"]
 
     monkeypatch.setattr(MS, "AFFINE_LADDER", False)
     params, _ = _host_params(BitsCircuit())
