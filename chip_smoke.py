@@ -43,7 +43,14 @@ prover's routes (the default; digits from the host, MASP_MSM_FROM_LIMBS=0;
 the stacked G1 MSMs, MASP_MSM_STACK=1; the fused prove, MASP_MSM_FUSED=1; a
 BGMW table for h at c = 12, MASP_MSM_BGMW_H=1; the lane-private Pippenger,
 MASP_MSM=lanes), each proof verified and equal to the default one byte for
-byte, with its spans, launches and time.
+byte, with its spans, launches and time. Phase "bench", last, runs the
+port's measurement entry points (masp_tpu_torch/tools/bench.py and the
+twins of tools/bench_{batch,tx,mixed_batch,verify}.py) in-process on the
+circuits' Parameters, each printing its JSON lines through
+utils/benchlog.py: bench.py's single mode on the real Spend and a stream of
+2-proof windows, bench_batch on Output, bench_tx, and bench_verify at B = 2
+with the device pairing; --bench adds the 64-proof mixed bundle and
+bench_verify at B = 8.
 
     python3 chip_smoke.py             # everything (one card)
     python3 chip_smoke.py --kernels   # build, the proof path's kernel checks and the tools only
@@ -52,6 +59,8 @@ byte, with its spans, launches and time.
     python3 chip_smoke.py --tx        # build, the real circuits and the wallet's transaction
     python3 chip_smoke.py --mesh      # build, the real circuits and phase mesh
     python3 chip_smoke.py --routes    # build, the real circuits and phase routes
+    python3 chip_smoke.py --bench     # build, the real circuits and phase bench (with the
+                                      # mixed bundle and bench_verify at B = 8)
     python3 chip_smoke.py --jubjub    # build and phase jubjub only
     python3 chip_smoke.py --pairing   # build and phase pairing only
     python3 chip_smoke.py --profile   # also one profiled proof per configuration
@@ -268,6 +277,14 @@ STAGE_HS = (1, 1 << 4, 1 << 15)
 # rows at which the product is latency-bound: the fetch's inversion trees
 # and the Fq trees' narrow steps
 NARROW_ROWS = (1, 32, 1024)
+# phase bench: bench.py's iterations (single and stream) and batch, which
+# bench_batch and bench_verify take too; under --bench the mixed bundle's
+# iterations and bench_verify at the source's B and iterations
+BENCH_ITERS = 3
+BENCH_BATCH = 2
+BENCH_MIXED_ITERS = 2
+BENCH_VERIFY_FULL = 8
+BENCH_VERIFY_ITERS = 3
 
 
 def log(msg: str) -> None:
@@ -1371,7 +1388,7 @@ def prove_phase(label, asm, params, rs, check, card, dev, must_launch):
         proofs.append(create_proof_from_assembly(asm, params, r, s, device=dev))
         times.append(time.perf_counter() - t0)
     launches = dict(LAUNCHES)
-    stages = tracing.report()
+    stages = tracing.stats()
     tracing.enable(False)
     log(f"[{label}] proofs: {[round(t, 4) for t in times]} s; median {np.median(times):.4f} s; "
         f"{len(times) / sum(times):.3f} proofs/s on {card}")
@@ -1493,7 +1510,7 @@ def circuit_phase(kind: str, dev, rng, card: str, profile: bool = False) -> dict
         proof = create_proof_from_assembly(wasm, params, r, s, device=dev)
         runs.append((route, t1 - t0, time.perf_counter() - t1, wasm, proof, r, s))
     launches = dict(LAUNCHES)
-    stages = tracing.report()
+    stages = tracing.stats()
     tracing.enable(False)
     for i, (route, wit_s, proof_s, *_) in enumerate(runs):
         log(f"[{label}] proof {i + 1}: witness {1e3 * wit_s:.2f} ms (host, {route} route), proof "
@@ -1594,7 +1611,7 @@ def batch_phase(circuits: dict, dev, card: str) -> dict:
         before = dict(LAUNCHES)
         t0 = time.perf_counter()
         proofs = batch_prove(keep(css), params, rss, *args, **kwargs)
-        run[kind] = {"wall_s": time.perf_counter() - t0, "n": len(proofs), "stages": tracing.report(),
+        run[kind] = {"wall_s": time.perf_counter() - t0, "n": len(proofs), "stages": tracing.stats(),
                      "launches": {k: LAUNCHES[k] - before[k] for k in LAUNCHES}}
         return proofs
 
@@ -2884,11 +2901,11 @@ def mesh_phase(circuits: dict, dev, rng, card: str) -> dict:
     reset_launches()
     mesh_proof, mesh_s = _timed(lambda: TP.create_proof_from_assembly(wasm, params, r, s, mesh=mesh))
     launches = dict(LAUNCHES)
-    mesh_stages = tracing.report()
+    mesh_stages = tracing.stats()
     TP.create_proof_from_assembly(wasm, params, r, s, device=dev)  # warm-up: the single-device queries
     tracing.reset()
     single_proof, single_s = _timed(lambda: TP.create_proof_from_assembly(wasm, params, r, s, device=dev))
-    single_stages = tracing.report()
+    single_stages = tracing.stats()
     tracing.enable(False)
     log(f"[mesh] Spend proof on {MESH_POSITIONS} positions of the card: {1e3 * mesh_s:.2f} ms; single device "
         f"{1e3 * single_s:.2f} ms, on {card}")
@@ -2982,7 +2999,7 @@ def routes_phase(circuits: dict, dev, rng, card: str) -> dict:
             reset_launches()
             proof, wall_s = _timed(lambda: TP.create_proof_from_assembly(wasm, params, r, s, device=dev))
             launches = dict(LAUNCHES)
-            stages = tracing.report()
+            stages = tracing.stats()
             tracing.enable(False)
             if want is None:
                 want = proof.write()
@@ -3006,6 +3023,102 @@ def routes_phase(circuits: dict, dev, rng, card: str) -> dict:
         tracing.enable(False)
     log(f"[routes] phase routes {time.perf_counter() - t_phase:.1f} s on {card}")
     return out
+
+
+# --- phase bench: the port's measurement entry points ---------------------------------
+
+def bench_phase(circuits: dict, dev, card: str, full: bool = False) -> dict:
+    """Phase bench: the twins of bench.py and tools/bench_*.py
+    (masp_tpu_torch/tools/) run in-process on the circuits phase's
+    Parameters, each printing its JSON lines through utils/benchlog.py:
+    bench.py's single mode on the real Spend at BENCH_ITERS (its span table
+    logged), then BENCH_BATCH proofs a window as one stream; bench_batch on
+    Output at B = BENCH_BATCH; bench_tx at one iteration; bench_verify at B =
+    BENCH_BATCH with the device pairing; with ``full`` (--bench) also the
+    64-proof mixed bundle and bench_verify at B = BENCH_VERIFY_FULL. Every
+    proof the twins make is checked by them (the host verifier, the batch
+    validator); each run's launches start at 0 just before it, and the
+    proving runs must launch every scan kernel, bench_verify the device
+    pairing's and the RedJubjub device batch's kernels. Logs launches per
+    proof beside the circuits phase's. Returns the launches by run."""
+    from masp_tpu_torch.groth16.local_prover import LocalTxProver
+    from masp_tpu_torch.groth16.prover import create_proof_from_assembly, synthesize_witness
+    from masp_tpu_torch.host.rng import XorShiftRng
+    from masp_tpu_torch.host.structures import prepare_verifying_key
+    from masp_tpu_torch.kernels import LAUNCHES, reset_launches
+    from masp_tpu_torch.tools import bench, bench_batch, bench_mixed_batch, bench_tx, bench_verify
+    from masp_tpu_torch.tools.fixtures import BENCH_SEED, fixture
+    from masp_tpu_torch.utils import benchlog, tracing
+
+    t_phase = time.perf_counter()
+    params = {k: circuits[k]["params"] for k in CIRCUITS}
+    launches = {}
+
+    def run(label, fn, must_launch, proofs=None):
+        """fn() with the launch counts zeroed just before it; its launches
+        per proof of ``proofs`` (kind, count) beside the circuits phase's."""
+        reset_launches()
+        t0 = time.perf_counter()
+        res = fn()
+        wall = time.perf_counter() - t0
+        launches[label] = dict(LAUNCHES)
+        missing = [k for k in must_launch if launches[label][k] <= 0]
+        if missing:
+            raise AssertionError(f"[bench] {label}: kernels {missing} were not launched")
+        log(f"[bench] {label}: {wall:.2f} s on {card}; launches {json.dumps({k: v for k, v in launches[label].items() if v})}")
+        if proofs is not None:
+            kind, n = proofs
+            one = circuits[kind]
+            per = {k: round(v / n, 2) for k, v in launches[label].items() if v}
+            was = {k: round(v / len(one["proof_s"]), 2) for k, v in one["launches"].items() if v}
+            log(f"[bench] {label}: launches per proof {json.dumps(per)}; circuits phase {json.dumps(was)}")
+        return res
+
+    def emit(result, samples=None, **extra):
+        """benchlog's line, then its raw samples, which only the log keeps."""
+        benchlog.emit(result, samples, device=str(dev), **extra)
+        if samples is not None:
+            log(f"[bench]   samples (s): {[round(x, 6) for x in samples]}")
+
+    make, publics = fixture("spend")
+    tracing.enable()
+    try:
+        result, raw = run("bench", lambda: bench.measure(make, params["spend"], publics, BENCH_ITERS, device=dev),
+                          SCAN_KERNELS, ("spend", 1 + BENCH_ITERS))
+        for line in tracing.report().splitlines():
+            log(f"[bench]   {line}")
+    finally:
+        tracing.enable(False)
+    emit(result, raw, circuit="spend", batch=0)
+    result, raw = run("bench_stream", lambda: bench.measure(make, params["spend"], publics, BENCH_ITERS, BENCH_BATCH,
+                                                            True, dev), SCAN_KERNELS,
+                      ("spend", 1 + BENCH_ITERS * BENCH_BATCH))
+    emit(result, raw, circuit="spend", batch=BENCH_BATCH, stream=True)
+
+    make_o, publics_o = fixture("output")
+    result = run("bench_batch", lambda: bench_batch.measure(make_o, params["output"], publics_o, BENCH_BATCH,
+                                                            "output", dev), SCAN_KERNELS,
+                 ("output", 1 + 3 * BENCH_BATCH))
+    emit(result, circuit="output", batch=BENCH_BATCH)
+
+    prover = LocalTxProver(params["spend"], params["output"], params["convert"])
+    for line in run("bench_tx", lambda: bench_tx.measure(prover, XorShiftRng.from_seed(BENCH_SEED), 1, dev),
+                    SCAN_KERNELS):
+        emit(*line)
+    if full:
+        for line in run("bench_mixed_batch", lambda: bench_mixed_batch.measure(
+                prover, XorShiftRng.from_seed(BENCH_SEED), BENCH_MIXED_ITERS, device=dev), SCAN_KERNELS):
+            emit(*line)
+
+    proof = create_proof_from_assembly(synthesize_witness(make_o()), params["output"], 7, 9, device=dev)
+    pvk = prepare_verifying_key(params["output"].vk)
+    for batch, iters in [(BENCH_BATCH, 1)] + ([(BENCH_VERIFY_FULL, BENCH_VERIFY_ITERS)] if full else []):
+        for line in run(f"bench_verify B={batch}", lambda: bench_verify.measure(
+                pvk, proof, publics_o, XorShiftRng.from_seed(BENCH_SEED), batch, iters, dev),
+                PAIRING_KERNELS + ["jubjub_add", "fr_sqrt", "mont_mul_fr"]):
+            emit(*line)
+    log(f"[bench] phase bench {time.perf_counter() - t_phase:.1f} s on {card} (backend {benchlog.backend()})")
+    return launches
 
 
 # --- main ------------------------------------------------------------------------------
@@ -3178,7 +3291,7 @@ def main(argv) -> int:
         print(card)
         print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": 1}}))
         return 0
-    if any(f in argv for f in ("--circuits", "--batch", "--tx", "--mesh", "--routes")):
+    if any(f in argv for f in ("--circuits", "--batch", "--tx", "--mesh", "--routes", "--bench")):
         circuits = circuits_phase(dev, rng, card, "--profile" in argv)
         if "--batch" in argv:
             batch_phase(circuits, dev, card)
@@ -3188,6 +3301,8 @@ def main(argv) -> int:
             mesh_phase(circuits, dev, rng, card)
         if "--routes" in argv:
             routes_phase(circuits, dev, rng, card)
+        if "--bench" in argv:
+            bench_phase(circuits, dev, card, full=True)
         print(card)
         print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": 1}}))
         return 0
@@ -3251,6 +3366,7 @@ def main(argv) -> int:
     routes = routes_phase(circuits, dev, rng, card)
     jubjub = jubjub_phase(dev, rng, card)
     pairing = pairing_phase(dev, rng, card, "--profile" in argv)
+    bench = bench_phase(circuits, dev, card)
     kern.update(jubjub["kernels"])
     leaf_per_proof(leaf_widths(asm, params, rs[1], dev), params, dev, card)
     for name, r in mont_mul_per_proof(mont_mul_widths(asm, params, rs[1], dev), dev, card).items():
@@ -3272,9 +3388,10 @@ def main(argv) -> int:
     # timed proofs, the bundle's at window 2, the default ("batch"), the
     # wallet's transaction path, summed over phase tx's steps ("tx"), the
     # mesh proof of phase mesh ("mesh"), each route's timed proof of phase
-    # routes ("routes/<route>"), the Jubjub path's ("jubjub") and the
+    # routes ("routes/<route>"), the Jubjub path's ("jubjub"), the
     # device pairing's product checks
-    # ("pairing"; the tools' kernels have this entry alone);
+    # ("pairing"; the tools' kernels have this entry alone) and phase bench's
+    # runs of the measurement twins, summed ("bench");
     # "widest" is a leaf add's pairs and ms at the main path's widest leaf
     # launch; a product's "forms" (ms through F.mont_mul and
     # bound per operand form), "narrow_ms" (rows: ms, inputs in L2),
@@ -3301,7 +3418,8 @@ def main(argv) -> int:
             **{kind: c["launches"][name] for kind, c in circuits.items()},
             "batch": batch[BATCH_WINDOWS[-1]][name], "tx": tx["launches"][name], "mesh": mesh["launches"][name],
             **{f"routes/{label}": routes["launches"][label][name] for label, _ in ROUTES},
-            "jubjub": jubjub["launches"][name], "pairing": pairing["launches"][name]},
+            "jubjub": jubjub["launches"][name], "pairing": pairing["launches"][name],
+            "bench": sum(run[name] for run in bench.values())},
         "max_abs_err": k["max_abs_err"], "ms": k["ms"],
         "eager_ms": k["eager_ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
         "bound_by": k["bound_by"], "library_ms": k.get("library_ms"), "bytes": k["bytes"],

@@ -283,7 +283,7 @@ def test_tracing_reads_masp_trace_and_profiles(tmp_path, monkeypatch):
             "    os.environ['MASP_TRACE'] = value\n"
             "    importlib.reload(T)\n"
             "    with T.span('s'):\n        pass\n"
-            "    print(T._tracer.enabled, T.report().get('s', {}).get('count'))")
+            "    print(T._tracer.enabled, T.stats().get('s', {}).get('count'))")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=300,
                          check=True).stdout
     assert out.split("\n")[:2] == ["True 1", "False None"]
